@@ -1,4 +1,4 @@
-"""Native runtime for the TPU stereo engine.
+"""Native runtime for the stereo engine.
 
 C++ components (runtime/cpp, built with `make -C runtime/cpp`):
   png_codec.cc — libpng RGBA8 codec (replaces the reference's vendored

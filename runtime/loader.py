@@ -3,7 +3,7 @@
 The reference decodes PNGs synchronously on the host thread and uploads
 with blocking CL_MEM_COPY_HOST_PTR creates (main.cpp:184-186,243-244),
 serialising I/O against compute.  This loader decodes ahead on worker
-threads (native libpng codec when built, PIL otherwise) and optionally
+threads (native libpng codec when built, numpy + zlib otherwise) and optionally
 stages arrays onto the device so the accelerator never waits for I/O —
 the pattern the video-stream config (BASELINE configs[4]) needs.
 """
@@ -18,17 +18,9 @@ import numpy as np
 
 
 def _decode(path: str) -> np.ndarray:
-    try:
-        from . import png_native
+    from stereo_matchin_tpu.io.png import read_rgb
 
-        rgba = png_native.decode_rgba(path)
-        return (rgba[..., :3] / np.float32(255.0)).astype(np.float32)
-    except ImportError:
-        from PIL import Image
-
-        with Image.open(path) as im:
-            arr = np.asarray(im.convert("RGB"), dtype=np.uint8)
-        return (arr / np.float32(255.0)).astype(np.float32)
+    return read_rgb(path)
 
 
 class PairLoader:

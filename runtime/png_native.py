@@ -1,7 +1,8 @@
 """ctypes binding for the native PNG codec (runtime/cpp/png_codec.cc).
 
 Build with `make -C runtime/cpp` (produces runtime/libstereo_runtime.so).
-`stereo_matchin_tpu.io.png` falls back to PIL when the library is absent.
+`stereo_matchin_tpu.io.png` falls back to its numpy + zlib codec when the
+library is absent.
 """
 
 from __future__ import annotations

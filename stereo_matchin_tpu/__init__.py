@@ -1,4 +1,4 @@
-"""stereo_matchin_tpu — a TPU-native dense stereo-matching engine.
+"""stereo_matchin_tpu — a dense stereo-matching engine in JAX.
 
 A from-scratch JAX/XLA/Pallas re-design of the capabilities of the
 `manixq/stereo_matchin` OpenCL reference (see SURVEY.md): two complete local
@@ -12,7 +12,7 @@ and disparity-axis sharding).
 Layering:
   config    — StereoConfig / MeshConfig (every reference constant, promoted)
   ops       — pure-jnp reference ops (semantic ground truth)
-  kernels   — Pallas TPU kernels for the hot paths
+  kernels   — GPU kernels (Pallas, Triton route) and the one kernel choice
   models    — end-to-end jitted pipelines (cross_based, asw)
   parallel  — meshes, halo exchange, sharded pipelines
   io        — PNG/PFM codecs, Middlebury dataset registry

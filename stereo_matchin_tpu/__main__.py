@@ -30,11 +30,7 @@ def _config_from_args(args):
 
     kw = {}
     for f in ("d_max", "radius", "arm_len", "r_iters", "k_iters",
-              "aggr_d_chunks"):
-        v = getattr(args, f, None)
-        if v is not None:
-            kw[f] = v
-    for f in ("aggr_kernels", "oii_impl", "kernels"):
+              "oii_impl"):
         v = getattr(args, f, None)
         if v is not None:
             kw[f] = v
@@ -78,7 +74,7 @@ def cmd_run(args) -> int:
         left = jnp.asarray(left_np)
         right = jnp.asarray(right_np)
         bands = args.bands
-        if bands == 0:  # auto: from the HBM-fit estimate
+        if bands == 0:  # auto: from the device's memory limit
             from .models.tiled import auto_bands
             bands = auto_bands(left.shape, cfg)
             print(f"{pair.name}: auto bands -> {bands}")
@@ -234,18 +230,11 @@ def main(argv=None) -> int:
                        help="registered pair names (default: tsukuba)")
         p.add_argument("--method", choices=["both", "cross", "asw"],
                        default="both")
-        for f in ("d_max", "radius", "arm_len", "r_iters", "k_iters",
-                  "aggr_d_chunks"):
+        for f in ("d_max", "radius", "arm_len", "r_iters", "k_iters"):
             p.add_argument(f"--{f}", type=int, default=None)
-        p.add_argument("--aggr_kernels", choices=["auto", "dres", "grid"],
+        p.add_argument("--oii_impl", choices=["auto", "prefix", "taps"],
                        default=None,
-                       help="ASW aggregation kernel family (default auto)")
-        p.add_argument("--oii_impl", choices=["auto", "prefix", "taps",
-                                              "pallas"], default=None,
                        help="cross-method OII/vote implementation")
-        p.add_argument("--kernels", choices=["auto", "jnp", "pallas"],
-                       default=None,
-                       help="force the compute backend path")
 
     p_run = sub.add_parser("run", help="run pipelines, write PNG artifacts")
     common(p_run)
@@ -253,11 +242,10 @@ def main(argv=None) -> int:
                        help="reference-format pics.txt with pair paths")
     p_run.add_argument("--out", default="out")
     p_run.add_argument("--bands", type=int, default=1,
-                       help="row-band tiling for frames whose cost volume "
-                            "exceeds HBM (wavefront strip-carry when "
-                            "supported, halo bands otherwise); disparity "
-                            "maps only; 0 = auto from the HBM-fit "
-                            "estimate (models.tiled.auto_bands)")
+                       help="row-band tiling for frames whose working set "
+                            "exceeds device memory; disparity maps only; "
+                            "0 = auto from the device's memory limit "
+                            "(models.tiled.auto_bands)")
     p_run.set_defaults(fn=cmd_run)
 
     p_bench = sub.add_parser("bench", help="per-stage TSV benchmark")

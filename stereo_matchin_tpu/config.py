@@ -1,4 +1,4 @@
-"""Configuration for the TPU-native stereo engine.
+"""Configuration for the stereo engine.
 
 The reference (`/root/reference/stereo_matching/main.cpp:176-177,202-205`)
 hardcodes every knob: 61 disparity hypotheses, a 33-tap support window,
@@ -75,30 +75,13 @@ class StereoConfig:
     # both dimensions divide by 3).
     median_dispatch_quirk: bool = False
 
-    # --- backend selection -------------------------------------------------
-    # "auto": Pallas TPU kernels on TPU backends, pure-jnp elsewhere;
-    # "jnp" / "pallas" force one path.  Results are bit-identical in f32.
-    kernels: str = "auto"
-    # OII aggregation + vote implementation: "prefix" mirrors the
-    # reference's integral images; "taps" is gather-free and translation-
-    # invariant (required for band tiling to be bit-exact); "auto" picks
-    # taps on TPU, prefix elsewhere.
+    # --- cross-method OII/vote formulation --------------------------------
+    # "prefix" mirrors the reference's integral images (cumsum + gathers);
+    # "taps" evaluates the same index sets as 2L+1 masked static shifts —
+    # translation-invariant, which band tiling and row sharding need to be
+    # bit-exact.  "auto" = prefix for whole frames (the band and mesh
+    # drivers always use taps).
     oii_impl: str = "auto"
-    # ASW aggregation in this many disparity chunks (Pallas path only;
-    # 0 = whole volume at once).  Disparity planes are independent, so a
-    # lax.scan over chunks bounds the aggregation phase's live memory to
-    # ~5 chunk-sized buffers plus the output volume — the knob that lets
-    # Middlebury-2014 bands grow past the whole-volume scheme's HBM
-    # ceiling (models/tiled.py).  Chunks are ceil(num_disp / n); a
-    # non-dividing plane count runs a smaller remainder chunk.  Values
-    # identical to the unchunked path.
-    aggr_d_chunks: int = 0
-    # ASW aggregation kernel family: "dres" = disparity-resident
-    # transposed kernels (kernels/asw_aggregation_dres.py — the fast
-    # single-chip schedule), "grid" = the (row, d)-gridded kernels
-    # (kernels/asw_aggregation.py — also the halo-sharded tile path),
-    # "auto" = dres whenever its per-program VMEM estimate fits the chip.
-    aggr_kernels: str = "auto"
 
     def __post_init__(self):
         if self.d_max < 1:
@@ -107,14 +90,10 @@ class StereoConfig:
             raise ValueError(f"radius must be >= 1, got {self.radius}")
         if self.arm_len < 2:
             raise ValueError(f"arm_len must be >= 2, got {self.arm_len}")
-        if self.aggr_d_chunks < 0 or self.aggr_d_chunks > self.d_max + 1:
+        if self.oii_impl not in ("auto", "prefix", "taps"):
             raise ValueError(
-                f"aggr_d_chunks ({self.aggr_d_chunks}) must be in "
-                f"[0, num_disp={self.d_max + 1}]")
-        if self.aggr_kernels not in ("auto", "dres", "grid"):
-            raise ValueError(
-                f"aggr_kernels must be 'auto', 'dres' or 'grid', "
-                f"got {self.aggr_kernels!r}")
+                f"oii_impl must be 'auto', 'prefix' or 'taps', "
+                f"got {self.oii_impl!r}")
 
     @property
     def num_disp(self) -> int:

@@ -3,6 +3,8 @@
 from .synthetic import synthetic_scene
 from .metrics import (
     MapComparison,
+    adjudicate_ties,
+    argmin_tie_gap,
     bad_pixel_pct,
     compare_maps,
     compare_to_golden,
@@ -11,6 +13,8 @@ from .metrics import (
 
 __all__ = [
     "MapComparison",
+    "adjudicate_ties",
+    "argmin_tie_gap",
     "bad_pixel_pct",
     "compare_maps",
     "compare_to_golden",

@@ -68,3 +68,31 @@ def compare_to_golden(got_img, pair_name: str, artifact: str,
 
     gold = png.read_gray(golden_path(pair_name, artifact))
     return compare_maps(got_img, gold, d_max=d_max)
+
+
+def argmin_tie_gap(costs: np.ndarray) -> np.ndarray:
+    """Relative gap between the two smallest costs along axis 0:
+    (c2 - c1) / c1, the margin a float sum-order change has to flip."""
+    v = np.sort(np.asarray(costs, np.float64), axis=0)
+    return (v[1] - v[0]) / np.maximum(v[0], 1e-30)
+
+
+def adjudicate_ties(got, want, aggregate, max_frac: float = 0.002,
+                    max_gap: float = 2.4e-7) -> int:
+    """Prove that every pixel where two WTA maps disagree is an argmin
+    tie.  got/want: (B, H, W) maps; aggregate(b) -> (D, H, W) aggregated
+    costs of frame b.  Raises AssertionError unless the disagreements are
+    at most `max_frac` of the pixels and each one's top-two costs lie
+    within `max_gap` relative (2.4e-7 is two float32 ulps).  Returns the
+    number of disagreements."""
+    got, want = np.asarray(got), np.asarray(want)
+    bad = np.argwhere(got != want)
+    if not len(bad):
+        return 0
+    assert len(bad) <= max_frac * got.size, (len(bad), got.size)
+    for b in sorted(set(bad[:, 0].tolist())):
+        aggr = np.asarray(aggregate(b))
+        for _, y, x in bad[bad[:, 0] == b]:
+            gap = float(argmin_tie_gap(aggr[:, y, x]))
+            assert gap <= max_gap, (int(b), int(y), int(x), gap)
+    return len(bad)

@@ -1,33 +1,32 @@
-"""Fused Pallas TPU kernels for the iterated ASW cost aggregation.
+"""ASW cost-aggregation passes as one Pallas kernel on the Triton route.
 
-This is the reference's hot loop — 79-95% of ASW runtime
-(`asw_vcost_aggregation.cl` / `asw_hcost_aggregation.cl`, enqueued r=7
-times, SURVEY.md §3.5).  Semantics are identical to
-`ops.asw_aggregate_pass` (tests pin bit-exactness in f32); only the
-schedule changes:
+Semantics are those of `ops.asw_aggregate_pass` with the denominator
+hoisted: for every (d, y, x) of the pass,
 
-  * grid = (row_blocks, D) with D innermost, so each program's support
-    weight blocks — the big operands — stay resident in VMEM across all
-    61 disparity planes (Pallas skips re-fetching blocks whose index map
-    is unchanged), cutting weight traffic from O(D * W * H * T) to one
-    pass per row block;
-  * the per-disparity right-weight shift max(x-d, 0) is a dynamic lane
-    rotate (pltpu.roll) plus an edge-clamp select, not a gather (Mosaic
-    cannot dynamically slice the lane dimension at arbitrary offsets);
-  * the 33-tap vertical reach is served by passing the row-padded cost
-    volume two (y_block >= 2R) or three (y_block >= R, when VMEM is
-    tight: radius 17 or wide lane chunks) times with consecutive block
-    index maps, so every operand is a plain auto-pipelined BlockSpec —
-    no manual DMA;
-  * the 33-tap loop is unrolled in-register: VPU multiply-accumulates,
-    one divide at the end;
-  * images wider than _CHUNK_MAX padded lanes (Middlebury-2014 geometry)
-    run in column chunks whose left halo covers the weight rotate
-    (_lane_chunked), bit-identical to the unchunked form.
+    ww(t)  = wL[t, y, x] * wR[t, y, max(x - (d0 + d), 0)]
+    num    = eps + sum_t ww(t) * C[d, nb(t)]
+    out    = num / den[d, y, x]
 
-The kernels are exact in f32.  For the disp-sharded path, pass the traced
-global offset via `d0` (and the static `max_shift`) so the rotate uses
-d0 + d.
+with nb(t) the clamped neighbour at offset t - R along the pass axis.
+`den = eps + sum_t ww(t)` depends on the weights only, so it is computed
+once per direction (the same kernel in `den` mode, same tap order) and
+read by all r_iters passes of that direction.
+
+Schedule, per program: one (BY, BX) tile of rows and columns and BD
+disparity planes.  The taps run in an scf.for loop; inside it the left
+weight strip is loaded once and shared by the BD planes, whose running
+sums stay in registers.  Edge clamping is done on the load indices, so
+no operand is padded or copied in XLA and every load is in bounds.  The
+output is allocated at whole tiles, (D, H, W) rounded up to (BD, BY,
+BX), so the store needs no mask; the next pass reads that padded volume
+directly (its loads clamp to the real extent, which the weights' shape
+gives) and `asw_aggregate` crops once at the end.  Everything is float32
+and there is no dot, so TF32 never arises.
+
+`d0` is the global index of local plane 0 (a traced scalar under
+`shard_map`), and `row_halo` lets the vertical pass read a cost tile
+that already carries `row_halo` exchanged rows above and below the
+output rows — the row-sharded pipeline's layout.
 """
 
 from __future__ import annotations
@@ -38,424 +37,136 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 from jax.experimental import pallas as pl
-from jax.experimental.pallas import tpu as pltpu
+from jax.experimental.pallas import triton as plgpu
+
+# Tile: BD planes x BY rows x BX columns per program.  Of the tiles
+# measured on an H100 (PERF.md), 8 x 8 x 128 with 4 warps was fastest at
+# KITTI geometry and within 15% of the best at tsukuba's.
+_BD, _BY, _BX = 8, 8, 128
+_NUM_WARPS, _NUM_STAGES = 4, 2
 
 
-def _shift_weights(wr, d, y_block: int, W: int, interpret: bool):
-    """wr: (T, y_b, W) right support strip -> strip shifted to max(x-d, 0).
-
-    Mosaic cannot dynamically slice the 128-lane dimension at arbitrary
-    offsets, so the shift is a dynamic lane rotate (tpu.dynamic_rotate via
-    pltpu.roll) plus an edge-clamp fixup of the first d columns.
-    """
-    roll = jnp.roll if interpret else pltpu.roll
-    rolled = roll(wr, d, axis=2)                 # out[x] = wr[(x-d) mod W]
-    lane = lax.broadcasted_iota(jnp.int32, (y_block, W), 1)
-    return jnp.where(lane[None] < d, wr[:, :, :1], rolled)
-
-
-def _v_kernel2(d0_ref, wl_ref, wr_ref, ca_ref, cb_ref, den_ref, out_ref, *,
-               radius: int, eps: float, y_block: int, interpret: bool):
-    """One (row_block, d) program of the vertical pass, TWO-block form:
-    +-R reach from two consecutive blocks of the R-top-padded cost volume
-    (requires y_block >= 2R).  Fastest when the weight strips fit VMEM —
-    the three-block form reads 1.5x the cost rows and measured ~10%
-    slower end-to-end.  den_ref holds the iteration-invariant
-    denominator eps + sum_t ww (hoisted out of the r-loop)."""
-    d = d0_ref[0, 0] + pl.program_id(1)
-    T = 2 * radius + 1
-    wl = wl_ref[:]                                   # (T, y_b, W)
-    W = out_ref.shape[2]
-    wr = _shift_weights(wr_ref[:], d, y_block, W, interpret)
-    cost2 = jnp.concatenate([ca_ref[0], cb_ref[0]], axis=0)  # (2*y_b, W)
-    num = jnp.full((y_block, W), eps, out_ref.dtype)
-    for t in range(T):
-        num = num + (wl[t] * wr[t]) * cost2[t:t + y_block]
-    out_ref[0] = num / den_ref[0]
-
-
-def _v_kernel3(d0_ref, wl_ref, wr_ref, ca_ref, cb_ref, cc_ref, den_ref,
-               out_ref, *, radius: int, eps: float, y_block: int,
-               interpret: bool):
-    """THREE-block form of the vertical pass: y_block >= R suffices, so
-    it fits VMEM at radius 17 and on wide lane chunks where the two-block
-    form's weight strips would not."""
-    d = d0_ref[0, 0] + pl.program_id(1)
-    T = 2 * radius + 1
-    wl = wl_ref[:]                                   # (T, y_b, W)
-    W = out_ref.shape[2]
-    wr = _shift_weights(wr_ref[:], d, y_block, W, interpret)
-    cost3 = jnp.concatenate([ca_ref[0], cb_ref[0], cc_ref[0]], axis=0)
-    num = jnp.full((y_block, W), eps, out_ref.dtype)
-    base = y_block - radius
-    for t in range(T):
-        num = num + (wl[t] * wr[t]) * cost3[base + t:base + t + y_block]
-    out_ref[0] = num / den_ref[0]
-
-
-def _den_kernel(d0_ref, wl_ref, wr_ref, out_ref, *, radius: int, eps: float,
-                y_block: int, interpret: bool):
-    """eps + sum_t wL[t]*wR_shifted[t] — same tap order as the pass
-    kernels, so hoisting is bit-exact."""
-    d = d0_ref[0, 0] + pl.program_id(1)
-    T = 2 * radius + 1
-    wl = wl_ref[:]
-    W = out_ref.shape[2]
-    wr = _shift_weights(wr_ref[:], d, y_block, W, interpret)
-    den = jnp.full((y_block, W), eps, out_ref.dtype)
-    for t in range(T):
-        den = den + wl[t] * wr[t]
-    out_ref[0] = den
-
-
-def _h_kernel(d0_ref, wl_ref, wr_ref, c_ref, den_ref, out_ref, *,
-              radius: int, eps: float, y_block: int, interpret: bool):
-    """One (row_block, d) program of the horizontal pass."""
-    d = d0_ref[0, 0] + pl.program_id(1)
-    T = 2 * radius + 1
-    W = out_ref.shape[2]
-    wl = wl_ref[:]
-    wr = _shift_weights(wr_ref[:], d, y_block, W, interpret)
-    c = c_ref[0]                                     # (y_b, W)
-    cpad = jnp.concatenate(
-        [jnp.broadcast_to(c[:, :1], (y_block, radius)), c,
-         jnp.broadcast_to(c[:, -1:], (y_block, radius))], axis=1)
-    num = jnp.full((y_block, W), eps, out_ref.dtype)
-    for t in range(T):
-        num = num + (wl[t] * wr[t]) * cpad[:, t:t + W]
-    out_ref[0] = num / den_ref[0]
-
-
-def _pick_v_scheme(H: int, radius: int, W_pad: int):
-    """(y_block, n_cost_blocks) for the vertical pass.
-
-    Prefer the two-block scheme (y_b >= 2R; 2x cost-row reads) — it
-    measured ~10% faster end-to-end than three blocks (1.5x more cost
-    traffic).  Fall back to three blocks (y_b >= R) when the two-block
-    weight strips would crowd the 16 MB scoped VMEM (radius 17 at full
-    width, or wide lane chunks)."""
-    T = 2 * radius + 1
-    y2 = max(32, -(-2 * radius // 8) * 8)
-    if 16 * T * y2 * W_pad <= 10_000_000:
-        return max(-(-2 * radius // 8) * 8,
-                   min(y2, -(-H // 8) * 8)), 2
-    budget = 10_000_000 // (16 * T * W_pad) // 8 * 8
-    floor = max(8, -(-radius // 8) * 8)
-    y3 = max(floor, min(32, budget))
-    return max(floor, min(y3, -(-H // 8) * 8)), 3
-
-
-def _pick_y_block_flat(H: int, radius: int, W_pad: int) -> int:
-    """Block size for the kernels with NO vertical reach (den, h-pass):
-    they have no 2R floor, so cap the block to keep the double-buffered
-    (T, y_b, W_pad) weight-strip pair within ~9 MB of VMEM — at
-    radius 17 (the 35x35 BASELINE window) the 2R-floored block blows the
-    16 MB scoped-vmem limit."""
-    T = 2 * radius + 1
-    # 16 = 2 operands x 2 pipeline buffers x 4 bytes.
-    budget = max(8, 9_000_000 // (16 * T * W_pad) // 8 * 8)
-    return max(8, min(32, budget, -(-H // 8) * 8))
-
-
-def _crop3(x, H: int, W: int):
-    """Undo wrapper padding on a (T, *, *) strip."""
-    return x[:, :H, :W]
-
-
-def _pad_cols(x, total: int):
-    """Edge-pad the lane (last) dimension to `total` columns.
-
-    tpu.dynamic_rotate (the per-d weight shift) requires a 128-aligned
-    lane dimension; W=450 images fail to compile without this.  Edge
-    values keep the horizontal clamp-to-edge reads of the last real
-    column correct; outputs are cropped back to W.
-    """
-    n = x.shape[-1]
-    if n == total:
-        return x
-    pad = [(0, 0)] * x.ndim
-    pad[-1] = (0, total - n)
-    return jnp.pad(x, pad, mode="edge")
-
-
-def _pad_rows(x, total: int, axis: int):
-    """Edge-pad `axis` up to `total` rows (values beyond the true height
-    only feed outputs that are sliced away, but edge values keep the
-    clamp-to-edge reads of the last real rows correct)."""
-    n = x.shape[axis]
-    if n == total:
-        return x
-    pad = [(0, 0)] * x.ndim
-    pad[axis] = (0, total - n)
-    return jnp.pad(x, pad, mode="edge")
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("radius", "eps", "interpret", "num_disp",
-                                    "max_shift"))
-def asw_den_pallas(w_left, w_right, radius: int, eps: float = 1e-5,
-                   interpret: bool = False, d0=0, num_disp: int | None = None,
-                   max_shift: int | None = None):
-    """Iteration-invariant denominator volume eps + sum_t wL*wR_shifted.
-
-    w_left/w_right: (T, H, W); returns (D, H, W) with D = num_disp
-    (defaults to the local plane count implied by the caller).  Same tap
-    order as the pass kernels -> hoisting it is bit-exact.
-    """
-    T, H, W = w_left.shape
-    D = num_disp
-    ms = (D - 1) if max_shift is None else max_shift
-    if -(-W // 128) * 128 > _CHUNK_MAX:
-        return _lane_chunked(
-            lambda wl, wr: _den_impl(wl, wr, radius=radius, eps=eps,
-                                     interpret=interpret, d0=d0, num_disp=D),
-            [(w_left, 2), (w_right, 2)], W, ms, 0)
-    return _den_impl(w_left, w_right, radius=radius, eps=eps,
-                     interpret=interpret, d0=d0, num_disp=D)
-
-
-def _den_impl(w_left, w_right, *, radius: int, eps: float, interpret: bool,
-              d0, num_disp: int):
-    T, H, W = w_left.shape
-    D = num_disp
-    W_pad = -(-W // 128) * 128
-    y_b = _pick_y_block_flat(H, radius, W_pad)
-    n_y = -(-H // y_b)
-    H_pad = n_y * y_b
-    wl = _pad_cols(_pad_rows(w_left, H_pad, axis=1), W_pad)
-    wr = _pad_cols(_pad_rows(w_right, H_pad, axis=1), W_pad)
-    d0_arr = jnp.asarray(d0, jnp.int32).reshape(1, 1)
-    kernel = functools.partial(_den_kernel, radius=radius, eps=eps,
-                               y_block=y_b, interpret=interpret)
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_y, D),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, d: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((T, y_b, W_pad), lambda i, d: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, y_b, W_pad), lambda i, d: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, y_b, W_pad), lambda i, d: (d, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((D, H_pad, W_pad), w_left.dtype),
-        interpret=interpret,
-    )(d0_arr, wl, wr)
-    return out[:, :H, :W]
-
-
-# Images wider than _CHUNK_MAX padded lanes are processed in column
-# chunks whose left halo covers the per-disparity weight rotate (max
-# shift = the highest global disparity) plus any horizontal tap reach —
-# within the halo the kernels' own lane-0 clamp logic produces values
-# that are cropped away, and the halo itself carries the exact
-# edge-clamped values, so chunked == unchunked bit-for-bit.
-_CHUNK_KEEP = 768
-_CHUNK_MAX = 1152
-
-
-def _lane_chunked(call, arrays, W: int, halo_l: int, halo_r: int,
-                  out_axis: int = 2, pass_x0: bool = False):
-    """Run `call` over column chunks of edge-padded `arrays` ((arr, lane
-    axis) pairs) and concatenate the kept lanes.
-
-    pass_x0: also pass the chunk's global start column as keyword `x0`
-    (kernels whose masks are anchored to GLOBAL image borders need it)."""
-    exts = []
-    for arr, ax in arrays:
-        pad = [(0, 0)] * arr.ndim
-        pad[ax] = (halo_l, halo_r)
-        exts.append((jnp.pad(arr, pad, mode="edge"), ax))
-    outs = []
-    x0 = 0
-    while x0 < W:
-        keep = min(_CHUNK_KEEP, W - x0)
-        chunks = [lax.slice_in_dim(e, x0, x0 + halo_l + keep + halo_r,
-                                   axis=ax) for e, ax in exts]
-        out = call(*chunks, x0=x0) if pass_x0 else call(*chunks)
-        outs.append(lax.slice_in_dim(out, halo_l, halo_l + keep,
-                                     axis=out_axis))
-        x0 += keep
-    return outs[0] if len(outs) == 1 else jnp.concatenate(outs, axis=out_axis)
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("radius", "eps", "interpret", "max_shift"))
-def asw_vpass_pallas(cost, w_left, w_right, radius: int, eps: float = 1e-5,
-                     interpret: bool = False, d0=0, den=None,
-                     max_shift: int | None = None):
-    """Vertical pass: cost (D, H, W), weights (T, H, W) -> (D, H, W).
-
-    d0: global disparity index of local plane 0 (disp-sharded path); the
-    weight rotate uses d0 + d.  May be a traced scalar — pass the static
-    `max_shift` (highest global disparity) alongside so wide images can
-    size their chunk halos; defaults to D - 1 (unsharded).
-    """
-    D, H, W = cost.shape
-    ms = (D - 1) if max_shift is None else max_shift
-    if -(-W // 128) * 128 > _CHUNK_MAX:
-        call = functools.partial(_vpass_impl, radius=radius, eps=eps,
-                                 interpret=interpret, d0=d0)
-        arrays = [(cost, 2), (w_left, 2), (w_right, 2)]
-        if den is not None:
-            return _lane_chunked(lambda c, wl, wr, dn: call(c, wl, wr, den=dn),
-                                 arrays + [(den, 2)], W, ms, 0)
-        return _lane_chunked(lambda c, wl, wr: call(c, wl, wr, den=None),
-                             arrays, W, ms, 0)
-    return _vpass_impl(cost, w_left, w_right, den=den, radius=radius,
-                       eps=eps, interpret=interpret, d0=d0)
-
-
-def _vpass_impl(cost, w_left, w_right, den, *, radius: int, eps: float,
-                interpret: bool, d0):
-    D, H, W = cost.shape
-    W_pad = -(-W // 128) * 128
-    y_b, blocks = _pick_v_scheme(H, radius, W_pad)
-    n_y = -(-H // y_b)
-    H_pad = n_y * y_b
-    w_left = _pad_cols(_pad_rows(w_left, H_pad, axis=1), W_pad)
-    w_right = _pad_cols(_pad_rows(w_right, H_pad, axis=1), W_pad)
-    cost = _pad_cols(cost, W_pad)
-    T = 2 * radius + 1
-
-    if den is None:
-        den = asw_den_pallas(_crop3(w_left, H, W), _crop3(w_right, H, W),
-                             radius, eps, interpret, d0, num_disp=D)
-    den_p = _pad_cols(_pad_rows(den, H_pad, axis=1), W_pad)
-    d0_arr = jnp.asarray(d0, jnp.int32).reshape(1, 1)
-    cost_spec = lambda k: pl.BlockSpec(
-        (1, y_b, W_pad), lambda i, d, k=k: (d, i + k, 0),
-        memory_space=pltpu.VMEM)
-    if blocks == 2:
-        # Rows pre-padded by R (edge) on top; bottom edge-padded + zero
-        # to (n_y + 1) blocks so the (i+1) operand's last block exists.
-        total = (n_y + 1) * y_b
-        cost_p = jnp.pad(cost, [(0, 0), (radius, H_pad - H + radius),
-                                (0, 0)], mode="edge")
-        cost_p = jnp.pad(cost_p, [(0, 0),
-                                  (0, total - (H_pad + 2 * radius)), (0, 0)])
-        kernel = functools.partial(_v_kernel2, radius=radius, eps=eps,
-                                   y_block=y_b, interpret=interpret)
-        cost_ops = [cost_spec(0), cost_spec(1)]
-        cost_args = (cost_p, cost_p)
+def _pass_kernel(d0_ref, *refs, mode: str, radius: int, eps: float,
+                 row_halo: int, dims: tuple):
+    """mode: "den" (eps + sum ww), "v" or "h" (weighted cost mean)."""
+    if mode == "den":
+        wl_ref, wr_ref, o_ref = refs
     else:
-        # Rows edge-padded by one block on top and through (n_y + 2)
-        # blocks total for the (i, i+1, i+2) operands; out-of-image taps
-        # read the clamped edge rows.
-        total = (n_y + 2) * y_b
-        cost_p = jnp.pad(cost, [(0, 0), (y_b, total - H - y_b), (0, 0)],
-                         mode="edge")
-        kernel = functools.partial(_v_kernel3, radius=radius, eps=eps,
-                                   y_block=y_b, interpret=interpret)
-        cost_ops = [cost_spec(0), cost_spec(1), cost_spec(2)]
-        cost_args = (cost_p, cost_p, cost_p)
-    out = pl.pallas_call(
-        kernel,
-        grid=(n_y, D),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, d: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((T, y_b, W_pad), lambda i, d: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, y_b, W_pad), lambda i, d: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            *cost_ops,
-            pl.BlockSpec((1, y_b, W_pad), lambda i, d: (d, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, y_b, W_pad), lambda i, d: (d, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((D, H_pad, W_pad), cost.dtype),
-        interpret=interpret,
-    )(d0_arr, w_left, w_right, *cost_args, den_p)
-    return out[:, :H, :W]
-
-
-@functools.partial(jax.jit,
-                   static_argnames=("radius", "eps", "interpret", "max_shift"))
-def asw_hpass_pallas(cost, w_left, w_right, radius: int, eps: float = 1e-5,
-                     interpret: bool = False, d0=0, den=None,
-                     max_shift: int | None = None):
-    """Horizontal pass: cost (D, H, W), weights (T, H, W) -> (D, H, W)."""
-    D, H, W = cost.shape
-    ms = (D - 1) if max_shift is None else max_shift
-    if -(-W // 128) * 128 > _CHUNK_MAX:
-        call = functools.partial(_hpass_impl, radius=radius, eps=eps,
-                                 interpret=interpret, d0=d0)
-        arrays = [(cost, 2), (w_left, 2), (w_right, 2)]
-        halo_l, halo_r = ms + radius, radius
-        if den is not None:
-            return _lane_chunked(lambda c, wl, wr, dn: call(c, wl, wr, den=dn),
-                                 arrays + [(den, 2)], W, halo_l, halo_r)
-        return _lane_chunked(lambda c, wl, wr: call(c, wl, wr, den=None),
-                             arrays, W, halo_l, halo_r)
-    return _hpass_impl(cost, w_left, w_right, den=den, radius=radius,
-                       eps=eps, interpret=interpret, d0=d0)
-
-
-def _hpass_impl(cost, w_left, w_right, den, *, radius: int, eps: float,
-                interpret: bool, d0):
-    D, H, W = cost.shape
-    W_pad = -(-W // 128) * 128
-    y_b = _pick_y_block_flat(H, radius, W_pad)
-    n_y = -(-H // y_b)
-    H_pad = n_y * y_b
-    w_left = _pad_cols(_pad_rows(w_left, H_pad, axis=1), W_pad)
-    w_right = _pad_cols(_pad_rows(w_right, H_pad, axis=1), W_pad)
-    cost = _pad_cols(_pad_rows(cost, H_pad, axis=1), W_pad)
+        c_ref, wl_ref, wr_ref, den_ref, o_ref = refs
+    D, H, W, Hc = dims
     T = 2 * radius + 1
+    bx, by, bd = pl.program_id(0), pl.program_id(1), pl.program_id(2)
+    xs = bx * _BX + jnp.arange(_BX, dtype=jnp.int32)
+    ys = by * _BY + jnp.arange(_BY, dtype=jnp.int32)
+    xc = jnp.minimum(xs, W - 1)[None, :]            # in-bounds columns
+    yc = jnp.minimum(ys, H - 1)[:, None]            # in-bounds rows
+    d0 = plgpu.load(d0_ref.at[0])
+    planes = [jnp.minimum(bd * _BD + j, D - 1) for j in range(_BD)]
+    # Right-weight column per plane: max(x - d_global, 0).
+    wr_cols = [jnp.maximum(xc - (d0 + p), 0) for p in planes]
 
-    if den is None:
-        den = asw_den_pallas(_crop3(w_left, H, W), _crop3(w_right, H, W),
-                             radius, eps, interpret, d0, num_disp=D)
-    den_p = _pad_cols(_pad_rows(den, H_pad, axis=1), W_pad)
-    d0_arr = jnp.asarray(d0, jnp.int32).reshape(1, 1)
-    kernel = functools.partial(_h_kernel, radius=radius,
-                               eps=eps, y_block=y_b, interpret=interpret)
-    out = pl.pallas_call(
+    def tap(t, accs):
+        wl = plgpu.load(wl_ref.at[t, yc, xc])
+        if mode == "v":
+            rows = jnp.clip(yc + (row_halo + t - radius), 0, Hc - 1)
+        elif mode == "h":
+            cols = jnp.clip(xc + (t - radius), 0, W - 1)
+        out = []
+        for j, p in enumerate(planes):
+            ww = wl * plgpu.load(wr_ref.at[t, yc, wr_cols[j]])
+            if mode == "den":
+                out.append(accs[j] + ww)
+            elif mode == "v":
+                out.append(accs[j] + ww * plgpu.load(c_ref.at[p, rows, xc]))
+            else:
+                out.append(accs[j] + ww * plgpu.load(c_ref.at[p, yc, cols]))
+        return tuple(out)
+
+    init = tuple(jnp.full((_BY, _BX), eps, jnp.float32) for _ in range(_BD))
+    accs = lax.fori_loop(0, T, tap, init)
+    for j, p in enumerate(planes):
+        val = accs[j]
+        if mode != "den":
+            val = val / plgpu.load(den_ref.at[p, yc, xc])
+        plgpu.store(o_ref.at[bd * _BD + j, pl.ds(by * _BY, _BY),
+                             pl.ds(bx * _BX, _BX)], val)
+
+
+def _call(mode, args, out_shape, radius, eps, row_halo, Hc, d0, interpret):
+    D, H, W = out_shape
+    kernel = functools.partial(_pass_kernel, mode=mode, radius=radius,
+                               eps=float(eps), row_halo=row_halo,
+                               dims=(D, H, W, Hc))
+    grid = (pl.cdiv(W, _BX), pl.cdiv(H, _BY), pl.cdiv(D, _BD))
+    padded = (grid[2] * _BD, grid[1] * _BY, grid[0] * _BX)
+    d0_arr = jnp.reshape(jnp.asarray(d0, jnp.int32), (1,))
+    return pl.pallas_call(
         kernel,
-        grid=(n_y, D),
-        in_specs=[
-            pl.BlockSpec((1, 1), lambda i, d: (0, 0),
-                         memory_space=pltpu.SMEM),
-            pl.BlockSpec((T, y_b, W_pad), lambda i, d: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((T, y_b, W_pad), lambda i, d: (0, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, y_b, W_pad), lambda i, d: (d, i, 0),
-                         memory_space=pltpu.VMEM),
-            pl.BlockSpec((1, y_b, W_pad), lambda i, d: (d, i, 0),
-                         memory_space=pltpu.VMEM),
-        ],
-        out_specs=pl.BlockSpec((1, y_b, W_pad), lambda i, d: (d, i, 0),
-                               memory_space=pltpu.VMEM),
-        out_shape=jax.ShapeDtypeStruct((D, H_pad, W_pad), cost.dtype),
+        out_shape=jax.ShapeDtypeStruct(padded, jnp.float32),
+        grid=grid,
+        compiler_params=plgpu.CompilerParams(num_warps=_NUM_WARPS,
+                                             num_stages=_NUM_STAGES),
+        backend="triton",
         interpret=interpret,
-    )(d0_arr, w_left, w_right, cost, den_p)
-    return out[:, :H, :W]
+        name=f"asw_{mode}pass" if mode != "den" else "asw_den",
+    )(d0_arr, *args)
 
 
-def asw_aggregate_pallas(cost, wv_left, wv_right, wh_left, wh_right,
-                         radius: int, r_iters: int, eps: float = 1e-5,
-                         interpret: bool = False):
-    """r_iters x (vertical -> horizontal), same wiring as main.cpp:492-515.
+def tile_padded(shape) -> tuple:
+    """(D, H, W) rounded up to whole tiles: the kernels' output shape."""
+    D, H, W = shape
+    return (-(-D // _BD) * _BD, -(-H // _BY) * _BY, -(-W // _BX) * _BX)
 
-    The denominators are iteration-invariant and hoisted out of the scan
-    (the reference recomputes them every pass; values identical)."""
-    D = cost.shape[0]
-    den_v = asw_den_pallas(wv_left, wv_right, radius, eps, interpret,
-                           num_disp=D)
-    den_h = asw_den_pallas(wh_left, wh_right, radius, eps, interpret,
-                           num_disp=D)
+
+def asw_den(w_left, w_right, num_disp: int, radius: int, eps: float = 1e-5,
+            d0=0, interpret: bool = False):
+    """eps + sum_t wL[t] * wR_shifted[t] for planes d0 .. d0 + num_disp - 1.
+
+    w_left/w_right: (T, H, W) strips -> (num_disp, H, W) rounded up to
+    whole tiles."""
+    _, H, W = w_left.shape
+    return _call("den", (w_left, w_right), (num_disp, H, W), radius, eps,
+                 0, H, d0, interpret)
+
+
+def asw_pass(cost, w_left, w_right, den, axis: int, radius: int,
+             eps: float = 1e-5, d0=0, row_halo: int = 0,
+             num_disp: int | None = None, interpret: bool = False):
+    """One aggregation pass along `axis` (1 vertical, 2 horizontal).
+
+    w_left/w_right: (T, H, W) strips, whose shape gives the real extent;
+    cost: (D, H + 2*row_halo, W) — row_halo only for the vertical pass —
+    or a tile-padded output of this module, with num_disp = D given;
+    den: `asw_den`'s output.  Returns the weighted means, (D, H, W)
+    rounded up to whole tiles."""
+    if axis not in (1, 2):
+        raise ValueError(f"axis must be 1 or 2, got {axis}")
+    if axis == 2 and row_halo:
+        raise ValueError("row_halo applies to the vertical pass only")
+    _, H, W = w_left.shape
+    D = cost.shape[0] if num_disp is None else num_disp
+    Hc = H + 2 * row_halo
+    return _call("v" if axis == 1 else "h", (cost, w_left, w_right, den),
+                 (D, H, W), radius, eps, row_halo, Hc, d0, interpret)
+
+
+def asw_aggregate(cost, wv_left, wv_right, wh_left, wh_right, radius: int,
+                  r_iters: int, eps: float = 1e-5, interpret: bool = False):
+    """r_iters x (vertical -> horizontal), as ops.asw_aggregate.
+
+    The volume stays tile-padded between passes (the padding is never
+    read) and is cropped back to cost.shape once at the end."""
+    D, H, W = cost.shape
+    den_v = asw_den(wv_left, wv_right, D, radius, eps, interpret=interpret)
+    den_h = asw_den(wh_left, wh_right, D, radius, eps, interpret=interpret)
+    pass_ = functools.partial(asw_pass, radius=radius, eps=eps, num_disp=D,
+                              interpret=interpret)
 
     def body(c, _):
-        cv = asw_vpass_pallas(c, wv_left, wv_right, radius, eps, interpret,
-                              den=den_v)
-        ch = asw_hpass_pallas(cv, wh_left, wh_right, radius, eps, interpret,
-                              den=den_h)
-        return ch, None
+        cv = pass_(c, wv_left, wv_right, den_v, 1)
+        return pass_(cv, wh_left, wh_right, den_h, 2), None
 
-    out, _ = lax.scan(body, cost, None, length=r_iters)
-    return out
+    Dp, Hp, Wp = tile_padded(cost.shape)
+    init = jnp.pad(cost, [(0, Dp - D), (0, Hp - H), (0, Wp - W)])
+    out, _ = lax.scan(body, init, None, length=r_iters)
+    return out[:D, :H, :W]

@@ -2,9 +2,9 @@
 
 `cross_based` — Zhang/Lu/Lafruit orthogonal-integral-image method.
 `asw`        — Kowalczuk/Psota/Pérez iterative adaptive-support-weight method.
-`tiled`      — row-band drivers for bigger-than-HBM frames (auto-route to
-               the wavefront strip-carry drivers in `wavefront` /
-               `wavefront_cross` when the band geometry supports them).
+`tiled`      — row-band drivers for frames bigger than device memory
+               (the cross driver routes to the strip-carrying
+               `wavefront_cross` when the band geometry supports it).
 """
 
 from .cross_based import (

@@ -1,8 +1,8 @@
 """Wavefront band pipeline for the cross-based method.
 
-Same idea as models/wavefront.py (ASW): the plain band driver
-(models/tiled.cross_pipeline_tiled) recomputes a 3L+4-row influence halo
-of EVERY stage per band side; here band b hands band b+1 strips sized by
+The plain band driver (models/tiled.cross_pipeline_tiled) recomputes a
+3L+4-row influence halo of EVERY stage per band side; here band b hands
+band b+1 strips sized by
 each stage's own vertical reach, and every volume-stage row is computed
 exactly once:
 
@@ -17,8 +17,8 @@ the image slice — they are row-local and cost nothing next to the
 D-plane volume stages.  Stage windows shift down by the consumer-chain
 reach (temp 2L+1, initial L+1, voted 1 rows below the kept window) and
 every window is an exact fit: no validity margins, no recompute.
-Bit-identical to cross_pipeline with the translation-invariant
-taps/pallas OII impls (pinned by tests/test_wavefront.py).
+Bit-identical to cross_pipeline with the translation-invariant taps OII
+implementation (pinned by tests/test_wavefront.py).
 
 Global-coordinate subtleties are inherited from the row-sharded tile
 (parallel/cross_sharded.py, whose anchored helpers this module reuses):
@@ -42,8 +42,6 @@ from ..config import StereoConfig
 from ..ops.oii import combined_arms
 from ..parallel.cross_sharded import (_cross_arms_tiled, _oii_htaps,
                                       _oii_vtaps_tiled)
-from ..utils.profiling import device_sync
-from .asw import _use_pallas
 
 
 @dataclass(frozen=True)
@@ -80,9 +78,9 @@ def plan_bands_cross(H: int, num_bands: int, cfg: StereoConfig):
 
 
 def _canon_c(g: _GeomC) -> _GeomC:
-    """Slice-local translation (see models/wavefront._canon): the band
-    program bakes in only differences of geometry fields, so equal-shape
-    interior bands share one jit/XLA cache entry.  When g1 is unclamped
+    """Slice-local translation: the band program bakes in only
+    differences of geometry fields, so equal-shape interior bands share
+    one jit/XLA cache entry.  When g1 is unclamped
     (g1 < H) the frame height folds to g1: the deepest read of any stage
     window is row e + 3L + 1 (arm walks below the temp window) < g1 =
     e + 3L + 3, so bottom masks and clamps are equal either way, and the
@@ -113,8 +111,7 @@ def _fix_bottom(arr, first_virtual: int, axis: int = 0):
     return _pad_rows_edge(real, n, axis)
 
 
-def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC,
-                     interpret: bool):
+def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC):
     """One wavefront band.  l/r: image slice rows [g0, g1); strips: None
     for the first band, else dict(temp=(D, 2L, W), initial=(2L, W),
     voted=(2, W)) covering the rows just above each fresh window.
@@ -147,13 +144,10 @@ def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC,
     mr = ops.median3x3(rp)          # slice-clamp row no stage consumes
     median_left = ml[loc(s):loc(e)]
 
-    # Arms over [a_lo, a_hi) with the global in-bounds walk; the helpers
-    # compute arms for every row of their input with M margin rows of
+    # Arms over [a_lo, a_hi) with the global in-bounds walk; the helper
+    # computes arms for every row of its input with M margin rows of
     # median (the global mask kills frame-top taps, so the first band
-    # needs no real margin above row 0).  The Pallas walk is bit-identical
-    # on every row with real margin — exactly the rows kept here.
-    use_pallas = interpret or _use_pallas(cfg)
-
+    # needs no real margin above row 0).
     def arms_of(m):
         if geom.first:
             win = lax.slice_in_dim(m, 0, loc(a_hi) + M, axis=0)
@@ -161,15 +155,8 @@ def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC,
         else:
             win = lax.slice_in_dim(m, loc(a_lo) - M, loc(a_hi) + M, axis=0)
             r0, lo = jnp.int32(a_lo - M), M
-        if use_pallas:
-            from ..kernels.cross_oii import cross_arms_pallas
-
-            a = cross_arms_pallas(win, L, cfg.tau,
-                                  cfg.legacy_cross_arm_quirk, row0=r0,
-                                  h_glob=H, interpret=interpret)
-        else:
-            a = _cross_arms_tiled(win, 0, r0, H, L, cfg.tau,
-                                  cfg.legacy_cross_arm_quirk)
+        a = _cross_arms_tiled(win, 0, r0, H, L, cfg.tau,
+                              cfg.legacy_cross_arm_quirk)
         return a[:, lo:lo + (a_hi - (0 if geom.first else a_lo))]
 
     arms_l = arms_of(ml)
@@ -181,62 +168,22 @@ def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC,
     # cross_pipeline_impl).
     ml_w = lax.slice_in_dim(ml, loc(t_lo), loc(t_hi), axis=0)
     mr_w = lax.slice_in_dim(mr, loc(t_lo), loc(t_hi), axis=0)
-    n_rows = t_hi - t_lo
 
     al_t, ar_t = asl(arms_l, t_lo, t_hi), asl(arms_r, t_lo, t_hi)
-    if use_pallas:
-        from ..kernels.cross_oii import (oii_hpass_pallas,
-                                         oii_hpass_pallas_t,
-                                         oii_t_profitable, oii_vpass_pallas)
-
-        if oii_t_profitable(n_rows, ml_w.shape[1]):
-            # Build the volume directly in the transposed (D, W, H)
-            # layout the kernel consumes — identical values
-            # (ops.sad_cost_volume_t), no full-volume relayout.  The
-            # Pallas builder replaces XLA's three per-channel stacked
-            # intermediates (measured 29.1 -> ~4 ms at the config-3
-            # band; bit-identical at scale 1).
-            from ..kernels.sad_volume import (sad_volume_fits,
-                                              sad_volume_t_pallas)
-
-            lt_w = jnp.swapaxes(ml_w, 0, 1)
-            rt_w = jnp.swapaxes(mr_w, 0, 1)
-            if sad_volume_fits(D, lt_w.shape[0], lt_w.shape[1]):
-                cost_t = sad_volume_t_pallas(lt_w, rt_w, D,
-                                             interpret=interpret)
-            else:
-                cost_t = ops.sad_cost_volume_t(lt_w, rt_w, D)
-            temp_fresh = oii_hpass_pallas_t(cost_t, al_t, ar_t, L,
-                                            interpret=interpret,
-                                            transposed_in=True)
-        else:
-            cost = ops.sad_cost_volume(ml_w, mr_w, D)
-            temp_fresh = oii_hpass_pallas(cost, al_t, ar_t, L,
-                                          interpret=interpret)
-    else:
-        cost = ops.sad_cost_volume(ml_w, mr_w, D)
-        hm, hp = combined_arms(al_t, ar_t, D, plane_minus=0, plane_plus=1)
-        temp_fresh = _oii_htaps(cost, hm, hp, L)
+    cost = ops.sad_cost_volume(ml_w, mr_w, D)
+    hm, hp = combined_arms(al_t, ar_t, D, plane_minus=0, plane_plus=1)
+    temp_fresh = _oii_htaps(cost, hm, hp, L)
 
     # temp rows [i_lo - L, t_hi): previous band's strip + fresh rows (the
     # first band has no rows above the frame top to seed).
     temp = (temp_fresh if geom.first else
             jnp.concatenate([strips["temp"], temp_fresh], axis=1))
-    if use_pallas:
-        al_v = asl(arms_l, i_lo - L if not geom.first else 0, t_hi)
-        ar_v = asl(arms_r, i_lo - L if not geom.first else 0, t_hi)
-        aggr = oii_vpass_pallas(
-            temp, al_v, ar_v, L, interpret=interpret,
-            row0=jnp.int32(0 if geom.first else i_lo - L), h_glob=H)
-        aggr = lax.slice_in_dim(aggr, 0 if geom.first else L, None, axis=1)
-        aggr = lax.slice_in_dim(aggr, 0, i_hi - i_lo, axis=1)
-    else:
-        alc, arc = asl(arms_l, i_lo, i_hi), asl(arms_r, i_lo, i_hi)
-        vm, vp = combined_arms(alc, arc, D, plane_minus=2, plane_plus=3)
-        # Uniform halo=L form: the first band gets L zero rows on top,
-        # which the global row-quirk mask (r >= 1) never reads.
-        tin = jnp.pad(temp, [(0, 0), (L, 0), (0, 0)]) if geom.first else temp
-        aggr = _oii_vtaps_tiled(tin, vm, vp, L, L, jnp.int32(i_lo), H)
+    alc, arc = asl(arms_l, i_lo, i_hi), asl(arms_r, i_lo, i_hi)
+    vm, vp = combined_arms(alc, arc, D, plane_minus=2, plane_plus=3)
+    # Uniform halo=L form: the first band gets L zero rows on top, which
+    # the global row-quirk mask (r >= 1) never reads.
+    tin = jnp.pad(temp, [(0, 0), (L, 0), (0, 0)]) if geom.first else temp
+    aggr = _oii_vtaps_tiled(tin, vm, vp, L, L, jnp.int32(i_lo), H)
 
     initial_fresh = ops.disparity_to_image(ops.wta_argmin(aggr),
                                            cfg.d_max, cfg.quantize_maps)
@@ -254,19 +201,12 @@ def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC,
     # exactly like the values.
     al_vote = _fix_bottom(al_vote, H - (0 if geom.first else v_lo - L),
                           axis=1)
-    if use_pallas:
-        from ..kernels.cross_oii import histogram_vote_pallas
-
-        voted_win = histogram_vote_pallas(initial, al_vote, cfg.d_max,
-                                          quantize=cfg.quantize_maps,
-                                          arm_len=L, interpret=interpret)
-    else:
-        # The taps vote clamps row reads at its input edges — the frame
-        # top for the first band; interior bands' centre rows never reach
-        # the window edge (L margin rows on each side).
-        voted_win = ops.histogram_vote(initial, al_vote, cfg.d_max,
-                                       quantize=cfg.quantize_maps,
-                                       arm_len=L, impl="taps")
+    # The taps vote clamps row reads at its input edges — the frame top
+    # for the first band; interior bands' centre rows never reach the
+    # window edge (L margin rows on each side).
+    voted_win = ops.histogram_vote(initial, al_vote, cfg.d_max,
+                                   quantize=cfg.quantize_maps,
+                                   arm_len=L, impl="taps")
     voted_fresh = lax.slice_in_dim(voted_win, 0 if geom.first else L,
                                    None, axis=0)
     voted_fresh = lax.slice_in_dim(voted_fresh, 0, v_hi - v_lo, axis=0)
@@ -291,21 +231,21 @@ def _cross_band_impl(l, r, strips, cfg: StereoConfig, geom: _GeomC,
                  "voted": voted[-2:]}
 
 
-@partial(jax.jit, static_argnums=(2, 3, 4))
-def _first_band_c(l, r, cfg, geom, interpret):
-    return _cross_band_impl(l, r, None, cfg, geom, interpret)
+@partial(jax.jit, static_argnums=(2, 3))
+def _first_band_c(l, r, cfg, geom):
+    return _cross_band_impl(l, r, None, cfg, geom)
 
 
-@partial(jax.jit, static_argnums=(3, 4, 5), donate_argnums=(2,))
-def _mid_band_c(l, r, strips, cfg, geom, interpret):
-    return _cross_band_impl(l, r, strips, cfg, geom, interpret)
+@partial(jax.jit, static_argnums=(3, 4), donate_argnums=(2,))
+def _mid_band_c(l, r, strips, cfg, geom):
+    return _cross_band_impl(l, r, strips, cfg, geom)
 
 
-@partial(jax.jit, static_argnums=(3, 4, 5))
-def _last_band_c(l, r, strips, cfg, geom, interpret):
+@partial(jax.jit, static_argnums=(3, 4))
+def _last_band_c(l, r, strips, cfg, geom):
     # No donation: the last band emits no strips, so the donated input
     # would have no output to alias (XLA warns and ignores).
-    return _cross_band_impl(l, r, strips, cfg, geom, interpret)
+    return _cross_band_impl(l, r, strips, cfg, geom)
 
 
 def cross_wavefront_supported(left_shape, cfg: StereoConfig,
@@ -315,11 +255,11 @@ def cross_wavefront_supported(left_shape, cfg: StereoConfig,
 
 
 def cross_pipeline_wavefront(left, right, cfg: StereoConfig,
-                             num_bands: int, interpret: bool = False):
+                             num_bands: int):
     """Banded cross-method run with inter-band strip carry; returns
     (initial, final), bit-identical to cross_pipeline with the
-    translation-invariant taps/pallas OII impls.  Bands are synced before
-    the next dispatch (bounding live HBM, as models/tiled)."""
+    translation-invariant taps OII implementation.  At most two bands
+    are in flight (bounding live device memory, as models/tiled)."""
     if cfg.median_dispatch_quirk:
         raise ValueError(
             "median_dispatch_quirk models the reference's truncated "
@@ -338,26 +278,18 @@ def cross_pipeline_wavefront(left, right, cfg: StereoConfig,
         l_sl, r_sl = left[g.g0:g.g1], right[g.g0:g.g1]
         gc = _canon_c(g)
         if g.first:
-            out, strips = _first_band_c(l_sl, r_sl, cfg, gc, interpret)
+            out, strips = _first_band_c(l_sl, r_sl, cfg, gc)
         elif g.last:
-            out, strips = _last_band_c(l_sl, r_sl, strips, cfg, gc, interpret)
+            out, strips = _last_band_c(l_sl, r_sl, strips, cfg, gc)
         else:
-            out, strips = _mid_band_c(l_sl, r_sl, strips, cfg, gc, interpret)
-        # Pipelined completion barrier: sync band b-1 AFTER dispatching
-        # band b, so at most two bands' transients are live (bounding
-        # HBM exactly as the eager per-band sync did) while the ~27 ms
-        # relay sync constant hides behind band b's execution.
+            out, strips = _mid_band_c(l_sl, r_sl, strips, cfg, gc)
+        # Wait for band b-1 only after dispatching band b: at most two
+        # bands' transients are live, and the device never idles between
+        # bands.
         if prev is not None:
-            device_sync(prev)
+            jax.block_until_ready(prev)
         prev = out["final"]
         pieces.append(out)
-    # Assemble BEFORE the final sync: the concats (two ~23 MB copies)
-    # queue behind the last band and the one remaining sync covers both,
-    # instead of paying the ~27 ms relay sync constant twice (round-5
-    # frame accounting, scratch/prof_frame_cross.py — the constant is a
-    # relay round-trip, so merging fetch points is the only way to
-    # shrink it).
     initial = jnp.concatenate([p["initial"] for p in pieces], axis=0)
     final = jnp.concatenate([p["final"] for p in pieces], axis=0)
-    device_sync(final)
     return initial, final

@@ -1,8 +1,8 @@
-"""Pure-jnp reference ops for the TPU stereo engine.
+"""Pure-jnp reference ops for the stereo engine.
 
 Each module mirrors one reference OpenCL kernel family (file:line citations
 in the module docstrings); these are the semantic ground truth that the
-Pallas kernels in `stereo_matchin_tpu.kernels` are tested against.
+GPU kernels in `stereo_matchin_tpu.kernels` are tested against.
 """
 
 from .common import (
@@ -18,7 +18,7 @@ from .common import (
     unorm8_code,
     unorm8_level,
 )
-from .cost import sad_cost_volume, sad_cost_volume_t
+from .cost import sad_cost_volume
 from .median import median3x3, median_dispatch_truncate
 from .cross import cross_arms
 from .support import support_weights
@@ -76,7 +76,6 @@ __all__ = [
     "refine_view",
     "refinement_weights",
     "sad_cost_volume",
-    "sad_cost_volume_t",
     "shift2d",
     "shift_axis",
     "stack_shift_x",

@@ -12,13 +12,13 @@ times back-to-back (main.cpp:492-515).  Each pass computes, per
 with nb(t) the clamped neighbour offset t-R along the pass axis.  The
 joint left*right (bilateral) weighting is the Kowalczuk/Psota/Perez
 formulation.  This module is the pure-jnp reference implementation; the
-Pallas TPU kernel in kernels/asw_pallas.py computes the same function
-with the cost block and both support strips resident in VMEM.
+Triton kernel in kernels/asw_aggregation.py computes the same function
+(the GPU path) with the denominator hoisted out of the r-loop.
 
 Memory note: the joint weight tensor (D, T, H, W) is never materialised —
 for tsukuba it would be ~900 MB.  Each tap's (D, H, W) joint weight is
-formed on the fly from edge-replicated static slices, which XLA fuses
-into the multiply-accumulate.
+formed on the fly from one gather of the shifted right strip, which XLA
+fuses into the multiply-accumulate.
 """
 
 from __future__ import annotations
@@ -26,18 +26,7 @@ from __future__ import annotations
 import jax
 import jax.numpy as jnp
 
-from .common import shift_axis
-
-
-def _disp_shifted(plane, num_disp: int):
-    """(H, W) -> (D, H, W): out[d, y, x] = plane[y, max(x-d, 0)]."""
-    H, W = plane.shape
-    ext = jnp.pad(plane, [(0, 0), (num_disp - 1, 0)], mode="edge")
-    return jnp.stack(
-        [jax.lax.slice_in_dim(ext, num_disp - 1 - d, num_disp - 1 - d + W, axis=1)
-         for d in range(num_disp)],
-        axis=0,
-    )
+from .common import shift_axis, stack_shift_x
 
 
 def asw_aggregate_pass(cost, w_left, w_right, axis: int, radius: int, eps: float = 1e-5):
@@ -53,7 +42,7 @@ def asw_aggregate_pass(cost, w_left, w_right, axis: int, radius: int, eps: float
     num = jnp.full_like(cost, eps)
     den = jnp.full_like(cost, eps)
     for t in range(T):
-        ww = w_left[t][None] * _disp_shifted(w_right[t], D)  # (D, H, W)
+        ww = w_left[t][None] * stack_shift_x(w_right[t], D)  # (D, H, W)
         c_nb = shift_axis(cost, t - radius, axis=axis)
         num = num + ww * c_nb
         den = den + ww

@@ -20,7 +20,7 @@ from __future__ import annotations
 import jax.numpy as jnp
 
 from .common import shift_axis
-from .aggregation import _disp_shifted
+from .common import stack_shift_x
 
 
 def asw_aggregate_2d(cost, wv_l, wv_r, wh_l, wh_r, radius: int):
@@ -34,8 +34,8 @@ def asw_aggregate_2d(cost, wv_l, wv_r, wh_l, wh_r, radius: int):
     """
     D = cost.shape[0]
     T = 2 * radius + 1
-    wv_r_d = jnp.stack([_disp_shifted(wv_r[t], D) for t in range(T)])
-    wh_r_d = jnp.stack([_disp_shifted(wh_r[t], D) for t in range(T)])
+    wv_r_d = jnp.stack([stack_shift_x(wv_r[t], D) for t in range(T)])
+    wh_r_d = jnp.stack([stack_shift_x(wh_r[t], D) for t in range(T)])
 
     num_v = jnp.zeros_like(cost)
     num_h = jnp.zeros_like(cost)

@@ -47,24 +47,27 @@ def shift_axis(x: jax.Array, shift: int, axis: int) -> jax.Array:
     return jax.lax.slice_in_dim(out, lo, lo + n, axis=axis)
 
 
-def stack_shift_x(x: jax.Array, num_disp: int, x_axis: int = 1) -> jax.Array:
+def disparity_columns(width: int, num_disp: int, d0=0) -> jax.Array:
+    """(num_disp, width) int32 index max(x - (d0 + d), 0): the column of
+    the right image that left column x reads at disparity d0 + d — the
+    reference's clamp-to-edge lookup `max(0, pos.x - pos.z)` (e.g.
+    asw_vcost_aggregation.cl:353, oii_hcross.cl:874).  d0 may be traced."""
+    xs = jnp.arange(width, dtype=jnp.int32)[None, :]
+    ds = d0 + jnp.arange(num_disp, dtype=jnp.int32)[:, None]
+    return jnp.maximum(xs - ds, 0)
+
+
+def stack_shift_x(x: jax.Array, num_disp: int, x_axis: int = 1,
+                  d0=0) -> jax.Array:
     """Stack left-shifted, edge-clamped copies along a new leading axis.
 
-    out[d, ..., xpos, ...] = x[..., max(xpos - d, 0), ...] for d in [0, num_disp).
-
-    This reproduces the reference's right-image lookup `max(0, pos.x - pos.z)`
-    (e.g. asw_vcost_aggregation.cl:353, oii_hcross.cl:874) as static slices of
-    one replicate-padded array, which XLA fuses without gathers.
+    out[d, ..., xpos, ...] = x[..., max(xpos - (d0 + d), 0), ...] for d in
+    [0, num_disp).  One gather, whatever num_disp is: a stack of
+    num_disp static slices grows the program (and its compile time) with
+    the disparity count.
     """
-    pad = [(0, 0)] * x.ndim
-    pad[x_axis] = (num_disp - 1, 0)
-    ext = jnp.pad(x, pad, mode="edge")
-    n = x.shape[x_axis]
-    planes = [
-        jax.lax.slice_in_dim(ext, num_disp - 1 - d, num_disp - 1 - d + n, axis=x_axis)
-        for d in range(num_disp)
-    ]
-    return jnp.stack(planes, axis=0)
+    idx = disparity_columns(x.shape[x_axis], num_disp, d0)
+    return jnp.moveaxis(jnp.take(x, idx, axis=x_axis), x_axis, 0)
 
 
 def unorm8(v: jax.Array) -> jax.Array:
@@ -141,21 +144,19 @@ def unorm8_level(k: jax.Array) -> jax.Array:
 
 
 def to_unit(d: jax.Array, d_max) -> jax.Array:
-    """Deterministic `d / d_max` for NON-quantized [0,1] rescales (round 5).
+    """Deterministic `d / d_max` for NON-quantized [0,1] rescales.
 
     A literal runtime division by a non-power-of-two constant is NOT
-    stable across compilation contexts — the judge-confirmed root cause
-    of the RED MULTICHIP_r04 artifact (sharded vs unsharded ASW output
-    diverging by exactly 2^-24 on 16.2% of pixels).  Measured in this
-    environment (scratch/probe_div_rewrite.py), one source expression
-    `x / d_max` compiles to THREE different value semantics: (1) a true
-    IEEE divide, (2) the simplifier's x*(1/d_max) rewrite, (3) the
-    rewrite with the reciprocal constant-folded into a downstream
-    constant multiply — and which fires depends on fusion context.
-    Forcing (1) with an optimization_barrier'd divisor is NOT the
-    answer either: the TPU backend's `divide` lowers to a reciprocal-
-    Newton approximation, not IEEE division (measured: it broke the
-    bit-perfect on-chip ASW golden, 100% -> 92.28% exact).
+    stable across compilation contexts: sharded and unsharded ASW
+    outputs once diverged by exactly 2^-24 on 16.2% of pixels because of
+    it (XLA:CPU).  One source expression `x / d_max` compiles to THREE
+    different value semantics: (1) a true IEEE divide, (2) the
+    simplifier's x*(1/d_max) rewrite, (3) the rewrite with the
+    reciprocal constant-folded into a downstream constant multiply —
+    and which fires depends on fusion context.  Forcing (1) with an
+    optimization_barrier'd divisor is NOT the answer either: a backend
+    may lower `divide` to a reciprocal-Newton approximation rather than
+    IEEE division.
 
     The resolution splits by use:
       * GOLDEN-SEMANTICS conversions (integer disparity -> stored UNORM8
@@ -261,7 +262,7 @@ def image_from_q(q: jax.Array, d_max: int) -> jax.Array:
     QUANTIZED [0, d_max] grid — the values the quantized pipelines carry
     (every element is unorm8_level(k) * d_max for some code k, e.g. the
     consistency-filled map).  Replaces the output-boundary `q / d_max`
-    (the exact site of the MULTICHIP_r04 1-ulp divergence).
+    (the exact site of the sharded-vs-unsharded 1-ulp divergence).
 
     The code is recovered by one multiply + round: with q =
     fl(fl(k/255)*d_max) and c = fl(255/d_max), the relative error of

@@ -8,8 +8,9 @@ clamp-to-edge sampler; cost layout is one (H, W) plane per disparity.
 
 from __future__ import annotations
 
-import jax
 import jax.numpy as jnp
+
+from .common import stack_shift_x
 
 
 def sad_cost_volume(left, right, num_disp: int, scale: float = 1.0):
@@ -17,45 +18,14 @@ def sad_cost_volume(left, right, num_disp: int, scale: float = 1.0):
 
     cost[d, y, x] = sum_c |scale*left[y, x, c] - scale*right[y, max(x-d, 0), c]|
 
-    TPU note: channel-at-a-time with one edge pad + static slices per
-    disparity — the (D, H, W, 3) channel-minor intermediate is ~50x
-    slower on TPU (profiled); values identical (channel sum order c0+c1+c2
-    matches the reference's .x+.y+.z).
+    Channel at a time, each channel's shifted planes one gather; the
+    channel sum order c0+c1+c2 matches the reference's .x+.y+.z.
     """
-    W = left.shape[1]
     l = jnp.moveaxis(left, -1, 0) * scale          # (3, H, W)
     r = jnp.moveaxis(right, -1, 0) * scale
-    ext = jnp.pad(r, [(0, 0), (0, 0), (num_disp - 1, 0)], mode="edge")
     cost = None
     for c in range(3):
-        planes = jnp.stack(
-            [jax.lax.slice_in_dim(ext[c], num_disp - 1 - d,
-                                  num_disp - 1 - d + W, axis=1)
-             for d in range(num_disp)], axis=0)    # (D, H, W)
-        term = jnp.abs(l[c][None] - planes)
-        cost = term if cost is None else cost + term
-    return cost
-
-
-def sad_cost_volume_t(left_t, right_t, num_disp: int, scale: float = 1.0):
-    """Transposed twin of sad_cost_volume for the disparity-resident
-    aggregation layout (kernels/asw_aggregation_dres.py).
-
-    left_t/right_t: (W, H, 3) transposed images.  Returns (D, W, H) with
-    cost_t[d, x, y] == sad_cost_volume(left, right, ...)[d, y, x] —
-    identical values (same |diff| terms, same c0+c1+c2 order), the
-    disparity shift just walks the leading (sublane) image axis.
-    """
-    W = left_t.shape[0]
-    l = jnp.moveaxis(left_t, -1, 0) * scale        # (3, W, H)
-    r = jnp.moveaxis(right_t, -1, 0) * scale
-    ext = jnp.pad(r, [(0, 0), (num_disp - 1, 0), (0, 0)], mode="edge")
-    cost = None
-    for c in range(3):
-        planes = jnp.stack(
-            [jax.lax.slice_in_dim(ext[c], num_disp - 1 - d,
-                                  num_disp - 1 - d + W, axis=0)
-             for d in range(num_disp)], axis=0)    # (D, W, H)
+        planes = stack_shift_x(r[c], num_disp, x_axis=1)    # (D, H, W)
         term = jnp.abs(l[c][None] - planes)
         cost = term if cost is None else cost + term
     return cost

@@ -15,8 +15,8 @@ import jax.numpy as jnp
 # The classic 19-exchange 9-element median selection network (Smith 1996 /
 # the standard 3x3 median-filter network): after these ordered min/max
 # exchanges, slot 4 holds the median.  Equivalent to sort-then-take-middle
-# for every input, but compiles in milliseconds where XLA TPU's variadic
-# sort took ~160 s (measured round 1).
+# for every input, and compiles in milliseconds where a variadic sort
+# can take minutes.
 _MED9_NET = [
     (1, 2), (4, 5), (7, 8), (0, 1), (3, 4), (6, 7), (1, 2), (4, 5), (7, 8),
     (0, 3), (5, 8), (4, 7), (3, 6), (1, 4), (2, 5), (4, 7), (4, 2), (6, 4),
@@ -27,7 +27,7 @@ _MED9_NET = [
 def median3x3(img):
     """img: (H, W) or (H, W, C) float. Returns same shape.
 
-    TPU note: channels-first internally, one edge pad, nine static slices,
+    Channels-first internally, one edge pad, nine static slices,
     min/max selection network (no sort).
     """
     chan = img.ndim == 3

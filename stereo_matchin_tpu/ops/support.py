@@ -33,9 +33,8 @@ def support_weights(img, radius: int, gamma_c: float, gamma_p: float, axis: int)
     (offset = t - radius), matching the reference's z-indexed support
     volumes (asw_vsupport.cl:396 layout).
 
-    TPU note: computed channels-first with ONE edge pad + static slices —
-    a channel-minor (H, W, 3) layout with a pad per tap is ~15x slower on
-    TPU (profiled); values are identical.
+    Computed channels-first with ONE edge pad + static slices (one pad
+    for all taps rather than one per tap); values are identical.
     """
     p = jnp.moveaxis(img, -1, 0) * 255.0          # (3, H, W)
     n = p.shape[1 + axis]

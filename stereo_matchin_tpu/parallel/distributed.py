@@ -2,15 +2,15 @@
 
 The reference is strictly single-device (SURVEY.md §2.3).  Multi-host
 scaling here rides jax.distributed + the same (batch, row, disp) mesh:
-each host contributes its local chips; the mesh's batch axis is laid out
-across hosts (frame parallelism over DCN, one image transfer per frame)
-while row/disp stay within a host so halo ppermutes and the WTA
-all_gather ride ICI.
+each host contributes its local cards; the mesh's batch axis is laid out
+across hosts (frame parallelism: one image transfer per frame crosses
+the network) while row/disp stay within a host, so the halo ppermutes
+and the WTA all_gather stay on the host's own card-to-card links.
 
-Typical pod-slice launch (same invocation on every host):
+Launch (same invocation on every host, its own process_id each):
 
     from stereo_matchin_tpu.parallel import distributed
-    distributed.initialize()                 # env-driven (TPU pods: no args)
+    distributed.initialize("host0:1234", num_processes=2, process_id=0)
     mesh = distributed.build_pod_mesh(row=2, disp=2)
     step = make_asw_sharded(cfg, mesh)       # global-array API under jit
 """
@@ -30,10 +30,9 @@ from .mesh import build_mesh
 def initialize(coordinator_address: Optional[str] = None,
                num_processes: Optional[int] = None,
                process_id: Optional[int] = None) -> None:
-    """jax.distributed.initialize with env-driven defaults.
-
-    On TPU pods all arguments come from the runtime environment; on CPU
-    test rigs pass them explicitly.  Safe to call once per process before
+    """jax.distributed.initialize.  Pass the coordinator address, process
+    count and this process's id; without them JAX looks for a cluster
+    environment it can read them from.  Call once per process, before
     any jax computation.
     """
     kwargs = {}
@@ -47,10 +46,10 @@ def build_pod_mesh(row: int = 1, disp: int = 1,
                    batch: Optional[int] = None) -> Mesh:
     """Global mesh over all devices of all hosts.
 
-    batch defaults to num_devices // (row * disp) — every host's chips
+    batch defaults to num_devices // (row * disp) — every host's cards
     split between the row/disp axes locally, and the frame axis spans
-    hosts (DCN-friendly: one ppermute/all_gather never crosses hosts as
-    long as row*disp divides the per-host chip count).
+    hosts (no ppermute/all_gather crosses hosts as long as row*disp
+    divides the per-host card count).
     """
     n = len(jax.devices())
     if batch is None:
@@ -65,20 +64,14 @@ def scaling_report(step_fn, left, right, mesh: Mesh, runs: int = 5,
                    repeats: int = 3):
     """Throughput + per-device efficiency for a sharded step on `mesh`.
 
-    Returns dict with wall ms, Mdisp/s, and Mdisp/s per device.  The
-    wall time is the MIN over `repeats` timed blocks of `runs` steps —
-    on the shared-core CPU proxy mesh a single mean block is easily
-    poisoned by transient host load (observed: a concurrent pytest run
-    inverted a weak-scaling line), and min-of-blocks is the standard
-    defence.
+    Returns dict with wall ms, Mpix/s, and Mpix/s per device.  The wall
+    time is the MIN over `repeats` timed blocks of `runs` steps — a
+    single mean block is easily poisoned by transient host load, and
+    min-of-blocks is the standard defence.
     """
     import time
 
-    import jax.numpy as jnp
-
-    def sync(out):
-        leaves = [x for x in jax.tree.leaves(out) if hasattr(x, "dtype")]
-        float(sum(jnp.sum(x.astype(jnp.float32)) for x in leaves))
+    sync = jax.block_until_ready
 
     sync(step_fn(left, right))          # warmup/compile
 
@@ -90,13 +83,12 @@ def scaling_report(step_fn, left, right, mesh: Mesh, runs: int = 5,
         sync(out)
         return time.perf_counter() - t0
 
-    # Host-contention detection (round-3 VERDICT item 6): keep timing
-    # blocks until the two fastest agree within 10%, up to 2x the
-    # requested repeats; a line that cannot converge is marked unstable
-    # so a swing under concurrent host load reads as noise, not as a
-    # scaling regression.  repeats=1 (round-5, advisor finding) is the
-    # explicit single-block fast path: one timed block, stability
-    # unassessed (stable=None) — callers asking for one block get one.
+    # Host-contention detection: keep timing blocks until the two fastest
+    # agree within 10%, up to 2x the requested repeats; a line that cannot
+    # converge is marked unstable so a swing under concurrent host load
+    # reads as noise, not as a scaling regression.  repeats=1 is the
+    # single-block fast path: one timed block, stability unassessed
+    # (stable=None).
     if repeats == 1:
         t = block()
         ms = t / runs * 1000.0

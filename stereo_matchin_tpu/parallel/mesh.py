@@ -1,11 +1,11 @@
 """Device-mesh construction for the sharded stereo pipelines.
 
 The reference has no multi-device story (SURVEY.md §2.3: devices are
-benchmarked serially, one context each, `main.cpp:158-172`).  The TPU
+benchmarked serially, one context each, `main.cpp:158-172`).  This
 design scales along three orthogonal axes:
 
   batch — data parallelism over independent stereo pairs (frames);
-  row   — spatial tiling of image height with ring halo exchange over ICI
+  row   — spatial tiling of image height with ring halo exchange
           (the sequence-parallel analogue for the 33-tap support windows
           and cross arms);
   disp  — disparity-axis sharding of the cost volume with a two-min
@@ -32,9 +32,9 @@ AXIS_DISP = "disp"
 def build_mesh(cfg: MeshConfig, devices=None) -> Mesh:
     """Arrange `cfg.num_devices` devices as (batch, row, disp).
 
-    The disp axis is innermost so its all-gathers ride the fastest ICI
-    links; row is next for the per-iteration halo ppermutes; batch is
-    outermost (one exchange per frame at most, can cross DCN).
+    The cards of one host reach each other all to all at one rate
+    (NVLink), so the layout follows the algorithm alone: devices are
+    taken in order, disp innermost.
     """
     if devices is None:
         devices = jax.devices()

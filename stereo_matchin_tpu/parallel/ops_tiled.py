@@ -12,8 +12,7 @@ Differences from the plain ops:
     the reference's clamped-distance quirk lands on the global border,
     not the tile border;
   * disparity shifts `max(x - d, 0)` take a traced disparity offset
-    (`d0 = disp_shard_index * d_local`) via one dynamic slice of an
-    edge-padded row extension.
+    (`d0 = disp_shard_index * d_local`) in the gather index.
 """
 
 from __future__ import annotations
@@ -22,40 +21,15 @@ import jax
 import jax.numpy as jnp
 from jax import lax
 
-
-def stack_shift_x_offset(x: jax.Array, d0, n_local: int, total_disp: int,
-                         x_axis: int = 1) -> jax.Array:
-    """out[dl, ..., xpos, ...] = x[..., max(xpos - (d0 + dl), 0), ...].
-
-    Traced-offset version of ops.common.stack_shift_x: d0 is the global
-    disparity index of local plane 0.  Pads once by (total_disp - 1)
-    edge-replicated columns, dynamic-slices the d0-dependent window, then
-    takes n_local static slices.
-    """
-    pad = [(0, 0)] * x.ndim
-    pad[x_axis] = (total_disp - 1, 0)
-    ext = jnp.pad(x, pad, mode="edge")
-    W = x.shape[x_axis]
-    # Window covering planes d0 .. d0 + n_local - 1.
-    starts = [0] * x.ndim
-    starts[x_axis] = (total_disp - 1) - d0 - (n_local - 1)
-    sizes = list(x.shape)
-    sizes[x_axis] = W + n_local - 1
-    base = lax.dynamic_slice(ext, starts, sizes)
-    planes = [
-        lax.slice_in_dim(base, (n_local - 1) - dl, (n_local - 1) - dl + W,
-                         axis=x_axis)
-        for dl in range(n_local)
-    ]
-    return jnp.stack(planes, axis=0)
+from ..ops.common import stack_shift_x
 
 
-def sad_cost_volume_shard(left, right, d0, n_local: int, total_disp: int,
+def sad_cost_volume_shard(left, right, d0, n_local: int,
                           scale: float = 1.0):
     """Local disparity shard of the SAD cost volume (aggregation.cl /
     asw_aggr.cl semantics): (Dl, H, W) for global d in [d0, d0+Dl)."""
-    right_planes = stack_shift_x_offset(right, d0, n_local, total_disp,
-                                        x_axis=1)  # (Dl, H, W, 3)
+    right_planes = stack_shift_x(right, n_local, x_axis=1,
+                                 d0=d0)                   # (Dl, H, W, 3)
     diff = jnp.abs(left[None] * scale - right_planes * scale)
     return diff.sum(axis=-1)
 
@@ -102,7 +76,7 @@ def support_weights_tiled(img_padded, radius: int, gamma_c: float,
 
 
 def asw_vpass_tiled(cost_padded, w_left, w_right, d0, n_local: int,
-                    total_disp: int, radius: int, eps: float = 1e-5):
+                    radius: int, eps: float = 1e-5):
     """Vertical ASW aggregation pass on a halo-padded cost tile.
 
     cost_padded: (Dl, H_loc + 2*radius, W); w_left/w_right: (T, H_loc, W)
@@ -119,8 +93,7 @@ def asw_vpass_tiled(cost_padded, w_left, w_right, d0, n_local: int,
     num = jnp.full(shape, eps, cost_padded.dtype)
     den = jnp.full(shape, eps, cost_padded.dtype)
     for t in range(2 * radius + 1):
-        wr = stack_shift_x_offset(w_right[t], d0, n_local, total_disp,
-                                  x_axis=1)                      # (Dl, H, W)
+        wr = stack_shift_x(w_right[t], n_local, d0=d0)          # (Dl, H, W)
         ww = w_left[t][None] * wr
         c_nb = lax.slice_in_dim(cost_padded, t, t + H_loc, axis=1)
         num = num + ww * c_nb
@@ -128,16 +101,15 @@ def asw_vpass_tiled(cost_padded, w_left, w_right, d0, n_local: int,
     return num / den, den
 
 
-def asw_hpass(cost, w_left, w_right, d0, n_local: int, total_disp: int,
-              radius: int, eps: float = 1e-5):
+def asw_hpass(cost, w_left, w_right, d0, n_local: int, radius: int,
+              eps: float = 1e-5):
     """Horizontal ASW aggregation pass (row-local; x clamp-to-edge)."""
     W = cost.shape[2]
     num = jnp.full(cost.shape, eps, cost.dtype)
     den = jnp.full(cost.shape, eps, cost.dtype)
     for t in range(2 * radius + 1):
         off = t - radius
-        wr = stack_shift_x_offset(w_right[t], d0, n_local, total_disp,
-                                  x_axis=1)
+        wr = stack_shift_x(w_right[t], n_local, d0=d0)
         ww = w_left[t][None] * wr
         padspec = [(0, 0), (0, 0), (max(-off, 0), max(off, 0))]
         ext = jnp.pad(cost, padspec, mode="edge")

@@ -1,6 +1,6 @@
-"""Shared utilities: relay-safe profiling/tracing, compile cache."""
+"""Shared utilities: profiling/tracing, compile cache."""
 
 from .compilation_cache import enable_compilation_cache
-from .profiling import Stopwatch, device_sync, trace
+from .profiling import Stopwatch, trace
 
-__all__ = ["Stopwatch", "device_sync", "enable_compilation_cache", "trace"]
+__all__ = ["Stopwatch", "enable_compilation_cache", "trace"]

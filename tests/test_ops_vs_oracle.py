@@ -231,20 +231,50 @@ def test_wta_fast_edge_cases():
         np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
 
 
-def test_gather_diagonal_mxu_matches_take(rng):
+def test_gather_diagonal_matches_take(rng):
     import importlib
 
     wf = importlib.import_module("stereo_matchin_tpu.ops.wta_fast")
     cost = rng.uniform(0, 700, (D, H, W)).astype(np.float32)
     d1 = rng.integers(0, D, (H, W)).astype(np.int32)
-    c = jnp.asarray(cost)
-    dd = jnp.asarray(d1)
     xs = np.arange(W)[None, :]
     bs = np.arange(D)[:, None, None]
     idx = np.clip(xs[None] - d1[None] + bs, 0, W - 1)
     want = np.take_along_axis(cost, idx, axis=2)
-    got = np.asarray(wf._gather_diagonal_mxu(c, dd))
+    got = np.asarray(wf._gather_diagonal(jnp.asarray(cost), jnp.asarray(d1)))
     np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("shape", [(5, 7, 9), (12, 4, 33), (17, 6, 16),
+                                   (31, 3, 40)],
+                         ids=lambda s: "x".join(map(str, s)))
+@pytest.mark.parametrize("penalty", [False, True], ids=["wta", "wta_ref"])
+def test_wta_fast_matches_sequential(shape, penalty):
+    """The vectorised WTA (one diagonal gather + closed-form clamped
+    tail) against the sequential epipolar scans, over plane counts and
+    widths on both sides of each other (d1 > x exercises the tail)."""
+    Dd, Hh, Ww = shape
+    r = np.random.default_rng(Dd * 100 + Ww)
+    cost = jnp.asarray(r.uniform(0, 50, shape).astype(np.float32))
+    if not penalty:
+        slow, fast = ops.wta(cost), ops.wta_fast(cost)
+        for a, b in zip(slow, fast):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        return
+    maps = [jnp.asarray(r.uniform(lo, hi, (Hh, Ww)).astype(np.float32))
+            for lo, hi in ((0, Dd - 1), (0.5, 40), (0, Dd - 1), (0.5, 40))]
+    slow = ops.wta_refined(cost, *maps, penalty=0.085)
+    fast = ops.wta_refined_fast(cost, *maps, penalty=0.085)
+    np.testing.assert_array_equal(np.asarray(slow.disp_ref),
+                                  np.asarray(fast.disp_ref))
+    np.testing.assert_array_equal(np.asarray(slow.disp_target),
+                                  np.asarray(fast.disp_target))
+    # conf = (c2 - c1) / c2 in [0, 1]: an ulp of penalty contraction in
+    # c1 or c2 moves it by up to two ulps of 1.0.
+    for a, b in ((slow.conf_ref, fast.conf_ref),
+                 (slow.conf_target, fast.conf_target)):
+        np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=1e-6,
+                                   atol=2.4e-7)
 
 
 def test_oii_taps_matches_prefix(rng):

@@ -47,7 +47,7 @@ def test_cross_pipeline_matches_goldens(tsukuba):
 
 def test_asw_pipeline_matches_goldens(tsukuba):
     """Bit-perfect since the unorm8 tie fix: measured 100.00% exact /
-    bad2 0.000 (CPU; the TPU path is pinned separately at <=0.05%)."""
+    bad2 0.000 (CPU)."""
     left, right = tsukuba
     res = asw.asw_pipeline(left, right, REFERENCE_CONFIG)
     final = compare_to_golden(np.asarray(res.disparity), "tsukuba",

@@ -74,13 +74,30 @@ def test_pair_loader(native):
 
 
 def test_compilation_cache_helper(tmp_path, monkeypatch):
-    from stereo_matchin_tpu.utils import enable_compilation_cache
+    """JAX_COMPILATION_CACHE_DIR, where set, wins and nothing is set in
+    code; otherwise the cache goes to the given (default: fixed) path."""
+    import jax
 
-    monkeypatch.setenv("STEREO_TPU_NO_COMPILE_CACHE", "1")
-    assert enable_compilation_cache() is None
-    monkeypatch.delenv("STEREO_TPU_NO_COMPILE_CACHE")
+    from stereo_matchin_tpu.utils import compilation_cache as cc
+
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path / "env"))
+    assert cc.enable_compilation_cache() == str(tmp_path / "env")
+    assert jax.config.jax_compilation_cache_dir == before
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR")
     d = str(tmp_path / "xla")
-    assert enable_compilation_cache(d) == d
-    import os
+    try:
+        assert cc.enable_compilation_cache(d) == d
+        assert os.path.isdir(d)
+        assert jax.config.jax_compilation_cache_dir == d
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
-    assert os.path.isdir(d)
+
+def test_compilation_cache_default_is_fixed_checkout_path():
+    """The default lives at <checkout>/.jax_cache, which .gitignore lists."""
+    from stereo_matchin_tpu.utils import compilation_cache as cc
+
+    assert cc.DEFAULT_DIR == os.path.join(REPO, ".jax_cache")
+    with open(os.path.join(REPO, ".gitignore")) as fh:
+        assert ".jax_cache/" in fh.read().split()

@@ -25,7 +25,7 @@ def pair():
     return jnp.asarray(left), jnp.asarray(right)
 
 
-@pytest.mark.parametrize("bands", [2, 3, 5])
+@pytest.mark.parametrize("bands", [2, 3, 4, 5, 7])
 def test_asw_tiled_matches_full(pair, bands):
     left, right = pair
     full = asw.asw_pipeline(left, right, CFG)
@@ -34,7 +34,7 @@ def test_asw_tiled_matches_full(pair, bands):
     np.testing.assert_array_equal(np.asarray(filled), np.asarray(full.filled))
 
 
-@pytest.mark.parametrize("bands", [2, 4])
+@pytest.mark.parametrize("bands", [2, 3, 4, 6])
 def test_cross_tiled_matches_full(pair, bands):
     left, right = pair
     # The tiled driver forces the translation-invariant taps OII impl;
@@ -49,44 +49,55 @@ def test_cross_tiled_matches_full(pair, bands):
 
 
 def test_auto_bands_matches_measured_boundary():
-    """The HBM-fit estimate must reproduce the measured config-3 facts:
-    5 bands fit a 16 GB v5e, 4 bands (497-row) planned past it; the
-    standard Middlebury pairs need no banding at all."""
+    """The memory-fit estimate against the measured plan: a BASELINE
+    config-3 frame (1988x2880, 280 disparities) fits whole in the 63.8 GB
+    an H100 process may allocate (its band program planned 5.03 volumes
+    per row); a quarter of that memory needs bands, each carrying
+    2 * asw_reach halo rows; the standard pairs never need banding."""
+    from stereo_matchin_tpu import REFERENCE_CONFIG
+    from stereo_matchin_tpu.models.tiled import asw_reach, auto_bands
+
+    h100 = 63_763_120_128
+    c3 = REFERENCE_CONFIG.replace(d_max=279)
+    assert auto_bands((1988, 2880, 3), c3, memory_bytes=h100) == 1
+    quarter = auto_bands((1988, 2880, 3), c3, memory_bytes=h100 // 4)
+    assert quarter > 1
+    per_row = 5.1 * 280 * 2880 * 4
+    rows_fit = int(0.85 * (h100 // 4) / per_row)
+    assert -(-1988 // quarter) + 2 * asw_reach(c3) <= rows_fit
+    assert auto_bands((288, 384, 3), REFERENCE_CONFIG, memory_bytes=h100) == 1
+    assert auto_bands((375, 450, 3), REFERENCE_CONFIG, memory_bytes=h100) == 1
+    # Monotone in every workload dimension.
+    assert auto_bands((3976, 2880, 3), c3, memory_bytes=h100) >= 2
+    assert auto_bands((1988, 5760, 3), c3, memory_bytes=h100 // 2) >= quarter
+
+
+def test_auto_bands_rejects_memory_below_the_halo():
+    """A budget that cannot hold even the 2 * asw_reach halo rows of one
+    band raises instead of planning bands that cannot fit."""
     from stereo_matchin_tpu import REFERENCE_CONFIG
     from stereo_matchin_tpu.models.tiled import auto_bands
 
-    c3 = REFERENCE_CONFIG.replace(d_max=279, aggr_d_chunks=8)
-    assert auto_bands((1988, 2880, 3), c3) == 5
-    assert auto_bands((288, 384, 3), REFERENCE_CONFIG) == 1
-    assert auto_bands((375, 450, 3), REFERENCE_CONFIG) == 1
-    # Monotone in every workload dimension.
-    assert auto_bands((3976, 2880, 3), c3) >= 2 * 5 - 1
-    assert auto_bands((1988, 2880, 3), c3, hbm_bytes=32 << 30) <= 3
+    with pytest.raises(ValueError, match="halo"):
+        auto_bands((1988, 2880, 3), REFERENCE_CONFIG.replace(d_max=279),
+                   memory_bytes=1 << 30)
 
 
-def test_config3_default_chunking_fits_vmem():
-    """bench.py's config-3 default (aggr_d_chunks=4 -> chunks of 72) must
-    keep the dres kernels inside the VMEM gate at both the interior-band
-    and first-band lane extents, at config-2's (2 chunks of 120, art
-    geometry), and at every standard pair unchunked — a VMEM-model change
-    that silently rejects these would knock the bench onto slow
-    fallbacks."""
-    from stereo_matchin_tpu import REFERENCE_CONFIG
-    from stereo_matchin_tpu.kernels.asw_aggregation_dres import dres_vmem_fits
-    from stereo_matchin_tpu.models import wavefront as wf
-    from stereo_matchin_tpu.models.asw import _chunk_geometry
+def test_device_memory_bytes_reads_the_device_limit():
+    """The budget comes from the device's own memory_stats()["bytes_limit"];
+    a device that reports none (the CPU) raises rather than assuming a
+    size."""
+    from stereo_matchin_tpu.models.tiled import device_memory_bytes
 
-    c3 = REFERENCE_CONFIG.replace(d_max=279, aggr_d_chunks=4)
-    chunk, n_eff = _chunk_geometry(c3.num_disp, c3.aggr_d_chunks, mult=8)
-    assert (chunk, n_eff) == (72, 4)
-    geoms = wf.plan_bands(1988, 5, c3)
-    assert dres_vmem_fits(chunk, max(g.g1 - g.g0 for g in geoms), c3.radius)
-    assert wf.wavefront_supported((1988, 2880, 3), c3, 5, interpret=True)
-    # config 2: art at 230 disparities, 2 chunks of 120.
-    c2 = REFERENCE_CONFIG.replace(d_max=229, aggr_d_chunks=2)
-    chunk2, _ = _chunk_geometry(c2.num_disp, c2.aggr_d_chunks, mult=8)
-    assert chunk2 == 120
-    assert dres_vmem_fits(chunk2, 359, c2.radius)
-    # standard pairs, unchunked reference config.
-    for H in (288, 375, 359, 372):
-        assert dres_vmem_fits(61, H, 16)
+    class Dev:
+        platform = "gpu"
+
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    assert device_memory_bytes(Dev({"bytes_limit": 123})) == 123
+    with pytest.raises(ValueError, match="memory limit"):
+        device_memory_bytes(Dev(None))

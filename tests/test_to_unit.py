@@ -1,12 +1,11 @@
-"""Round-5 regression tests for the compiler-stable disparity rescaling.
+"""Regression tests for the compiler-stable disparity rescaling.
 
-VERDICT.md round-4 Weak 1 / next-round item 1: the RED MULTICHIP_r04
-artifact was root-caused to runtime `x / d_max` divisions on output
-paths.  One source expression was measured compiling to THREE different
-value semantics by context (true divide / reciprocal multiply / folded
-reciprocal), and on TPU the `divide` HLO itself is a reciprocal-Newton
-approximation — so NO division-based form can be both context- and
-backend-stable.  The fix (ops/common.py) is division-free:
+A sharded-vs-unsharded output divergence was root-caused to runtime
+`x / d_max` divisions on output paths.  One source expression was
+measured compiling to THREE different value semantics by context (true
+divide / reciprocal multiply / folded reciprocal), and a backend may
+lower the `divide` HLO itself to a reciprocal-Newton approximation — so
+NO division-based form can be both context- and backend-stable.  The fix (ops/common.py) is division-free:
 
   * `disparity_to_image`: integer disparity -> UNORM8 image value via an
     exact int32 multiply-shift for the code (trace-time-verified against
@@ -131,8 +130,7 @@ _DIV_RE = re.compile(r"/\s*\(?\s*(cfg\s*\.\s*)?d_max\b")
 
 
 def test_no_raw_dmax_division_survives():
-    """Structural pin (VERDICT round-4 item 1 'done' criterion): outside
-    ops/common.py (where the helpers live), no runtime source line
+    """Structural pin: outside ops/common.py (where the helpers live), no runtime source line
     divides by d_max.  Comment and string/docstring tokens are stripped
     with the tokenize module first, so only real code can match."""
     import io

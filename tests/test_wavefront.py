@@ -1,112 +1,13 @@
-"""Wavefront-banded vs full-frame equality (models/wavefront.py).
-
-The wavefront driver must be bit-identical to the full-frame run on the
-same (dres) kernels: every aggregation row is computed exactly once, by
-the same kernel expression, on either path.  Runs the Pallas kernels in
-interpret mode on CPU.
-"""
-
-from functools import partial
+"""Wavefront-banded vs full-frame equality for the cross method
+(models/wavefront_cross.py): bit-identical to the full-frame run with the
+translation-invariant taps OII implementation."""
 
 import numpy as np
 import pytest
 
-import jax
 import jax.numpy as jnp
 
 from stereo_matchin_tpu import StereoConfig
-from stereo_matchin_tpu.models.asw import (_aggregate_dres,
-                                           asw_postaggregate_impl)
-from stereo_matchin_tpu.models.wavefront import (asw_pipeline_wavefront,
-                                                 plan_bands,
-                                                 wavefront_supported)
-
-# keep = k*R + 1 = 5; strip windows need bands >= 10 rows.
-CFG = StereoConfig(d_max=11, radius=2, arm_len=3, r_iters=3, k_iters=2,
-                   aggr_d_chunks=2, kernels="pallas")
-
-
-@pytest.fixture(scope="module")
-def pair():
-    rng = np.random.default_rng(7)
-    left = (rng.integers(0, 256, (48, 32, 3)) / np.float32(255.0)).astype(
-        np.float32)
-    right = np.roll(left, -2, axis=1)
-    noise = rng.integers(-12, 13, right.shape) / np.float32(255.0)
-    right = np.clip(np.round((right + noise) * 255) / 255.0, 0, 1).astype(
-        np.float32)
-    return jnp.asarray(left), jnp.asarray(right)
-
-
-@partial(jax.jit, static_argnums=2)
-def _full_dres(left, right, cfg):
-    aggr = _aggregate_dres(left, right, cfg, (0, 0), interpret=True)
-    res = asw_postaggregate_impl(aggr, left, right, cfg)
-    return res.disparity, res.filled
-
-
-@pytest.mark.parametrize("bands", [2, 3])
-def test_wavefront_matches_full(pair, bands):
-    left, right = pair
-    assert wavefront_supported(left.shape, CFG, bands, interpret=True)
-    disp_f, filled_f = _full_dres(left, right, CFG)
-    disp, filled = asw_pipeline_wavefront(left, right, CFG, bands,
-                                          interpret=True)
-    np.testing.assert_array_equal(np.asarray(disp), np.asarray(disp_f))
-    np.testing.assert_array_equal(np.asarray(filled), np.asarray(filled_f))
-
-
-def test_wavefront_non_dividing_last_band(pair):
-    """H=44: last band is shorter (12 rows) but still >= the strip window."""
-    left, right = pair
-    left, right = left[:44], right[:44]
-    assert plan_bands(44, 3, CFG) is not None
-    disp_f, filled_f = _full_dres(left, right, CFG)
-    disp, filled = asw_pipeline_wavefront(left, right, CFG, 3,
-                                          interpret=True)
-    np.testing.assert_array_equal(np.asarray(disp), np.asarray(disp_f))
-    np.testing.assert_array_equal(np.asarray(filled), np.asarray(filled_f))
-
-
-def test_wavefront_aligned_plan_matches_full(pair):
-    """Lane-aligned band boundaries (plan_bands' align snap) move the
-    cuts but not the values.  align=8 at H=44 forces the aligned layout
-    (bands 16/16/12) where the default 128 would fall back to the even
-    split (15/15/14)."""
-    left, right = pair
-    left, right = left[:44], right[:44]
-    aligned = plan_bands(44, 3, CFG, align=8)
-    assert [(g.s, g.e) for g in aligned] == [(0, 16), (16, 32), (32, 44)]
-    disp_f, filled_f = _full_dres(left, right, CFG)
-    disp, filled = asw_pipeline_wavefront(left, right, CFG, 3,
-                                          interpret=True, align=8)
-    np.testing.assert_array_equal(np.asarray(disp), np.asarray(disp_f))
-    np.testing.assert_array_equal(np.asarray(filled), np.asarray(filled_f))
-
-
-def test_plan_aligned_at_scale():
-    """BASELINE config-3 geometry: interior bands snap to 128-multiples
-    (zero lane padding in the dres passes); the last band absorbs the
-    remainder, bounded to one lane tile over the even split."""
-    cfg = StereoConfig(d_max=279, radius=16, r_iters=7, k_iters=6,
-                       aggr_d_chunks=8, kernels="pallas")
-    geoms = plan_bands(1988, 5, cfg)
-    assert [g.e - g.s for g in geoms] == [384, 384, 384, 384, 452]
-    assert all(g.s % 128 == 0 for g in geoms)
-
-
-def test_plan_rejects_short_bands():
-    # 6-row bands are shorter than the 2*keep strip window.
-    assert plan_bands(48, 8, CFG) is None
-    # A single band is not a banded run.
-    assert plan_bands(48, 1, CFG) is None
-
-
-def test_unsupported_on_grid_kernels(pair):
-    assert not wavefront_supported(pair[0].shape,
-                                   CFG.replace(aggr_kernels="grid"), 2,
-                                   interpret=True)
-
 
 # --- cross method ---------------------------------------------------------
 
@@ -129,26 +30,13 @@ def cross_pair():
     return jnp.asarray(left), jnp.asarray(right)
 
 
-@pytest.mark.parametrize("bands", [2, 3, 5])
+@pytest.mark.parametrize("bands", [2, 3, 4, 5, 6])
 def test_cross_wavefront_matches_full_taps(cross_pair, bands):
     left, right = cross_pair
     cfg = CROSS_CFG.replace(oii_impl="taps")
     assert cross_wavefront_supported(left.shape, cfg, bands)
     full = cross_based.cross_pipeline(left, right, cfg)
     initial, final = cross_pipeline_wavefront(left, right, cfg, bands)
-    np.testing.assert_array_equal(np.asarray(initial),
-                                  np.asarray(full.initial))
-    np.testing.assert_array_equal(np.asarray(final), np.asarray(full.final))
-
-
-def test_cross_wavefront_interpret_matches_taps(cross_pair):
-    """Pallas kernels (interpret mode) through the wavefront == the taps
-    full-frame run (the kernels are bit-identical to taps)."""
-    left, right = cross_pair
-    cfg = CROSS_CFG.replace(oii_impl="taps")
-    full = cross_based.cross_pipeline(left, right, cfg)
-    initial, final = cross_pipeline_wavefront(left, right, cfg, 3,
-                                              interpret=True)
     np.testing.assert_array_equal(np.asarray(initial),
                                   np.asarray(full.initial))
     np.testing.assert_array_equal(np.asarray(final), np.asarray(full.final))
@@ -166,27 +54,39 @@ def test_cross_wavefront_non_dividing_last_band(cross_pair):
     np.testing.assert_array_equal(np.asarray(final), np.asarray(full.final))
 
 
-def test_cross_wavefront_bottom_clamp_arms():
+def _bottom_detail_scene(H=64, W=48, seed=5):
+    """A seeded pair whose last rows carry horizontal detail at the arm
+    threshold tau = 0.1: colour steps of 0.08-0.12 between neighbouring
+    columns, so arm walks stop or continue depending on which rows the
+    median mixed in.  Above them, the smooth synthetic texture."""
+    from stereo_matchin_tpu.eval import synthetic_scene
+
+    rng = np.random.default_rng(seed)
+    left, right, _, _ = synthetic_scene(rng, H, W, 6)
+    steps = rng.choice([-1, 1], (4, W, 1)) * rng.uniform(0.08, 0.12,
+                                                         (4, W, 3))
+    rows = 0.5 + np.cumsum(steps, axis=1) % 0.4
+    rows = np.round(rows * 255) / 255.0
+    left[-4:] = rows
+    right[-4:] = np.roll(rows, -2, axis=1)
+    return jnp.asarray(left, jnp.float32), jnp.asarray(right, jnp.float32)
+
+
+@pytest.mark.parametrize("bands", [2, 3])
+def test_cross_wavefront_bottom_clamp_arms(bands):
     """Frame-bottom vote rows must use row-(H-1)'s ARMS for clamped
     reads — disparity.cl samples the arms image with the same
     CLAMP_TO_EDGE as the disparity map, while a virtual (replicated)
     row's own arm walk sees different neighbours at each distance.
 
-    The trigger needs REAL image structure: the median of edge-replicated
-    raw rows is not a replicated median, so the virtual rows' horizontal
-    arm walks diverge only when the true bottom rows carry near-tau
-    detail (synthetic noise pairs grow no arms at all; smooth gradients
-    grow identical ones).  A vertically-cropped tsukuba at the full
-    reference arms reproduces it: 14 differing pixels in the last two
-    rows before the fix (caught on-chip at teddy in round 4)."""
-    from stereo_matchin_tpu.io import load_pair
-
-    left, right = load_pair("tsukuba")
-    left = jnp.asarray(left[176:])
-    right = jnp.asarray(right[176:])
-    cfg = StereoConfig(d_max=15, oii_impl="taps")
+    The trigger needs near-tau detail in the true bottom rows: the median
+    of edge-replicated raw rows is not a replicated median, so the
+    virtual rows' horizontal arm walks diverge only then (noise pairs
+    grow no arms at all; smooth gradients grow identical ones)."""
+    left, right = _bottom_detail_scene()
+    cfg = StereoConfig(d_max=7, arm_len=6, oii_impl="taps")
     full = cross_based.cross_pipeline(left, right, cfg)
-    initial, final = cross_pipeline_wavefront(left, right, cfg, 2)
+    initial, final = cross_pipeline_wavefront(left, right, cfg, bands)
     np.testing.assert_array_equal(np.asarray(initial),
                                   np.asarray(full.initial))
     np.testing.assert_array_equal(np.asarray(final), np.asarray(full.final))
@@ -194,17 +94,3 @@ def test_cross_wavefront_bottom_clamp_arms():
 
 def test_cross_plan_rejects_short_bands():
     assert plan_bands_cross(96, 16, CROSS_CFG) is None
-
-
-def test_wavefront_single_chunk_and_r1(pair):
-    """aggr_d_chunks=0 (one padded chunk) and r_iters=1 (no level strips
-    consumed) both flow through the wavefront unchanged."""
-    left, right = pair
-    for cfg in (CFG.replace(aggr_d_chunks=0),
-                CFG.replace(r_iters=1, aggr_d_chunks=0)):
-        disp_f, filled_f = _full_dres(left, right, cfg)
-        disp, filled = asw_pipeline_wavefront(left, right, cfg, 3,
-                                              interpret=True)
-        np.testing.assert_array_equal(np.asarray(disp), np.asarray(disp_f))
-        np.testing.assert_array_equal(np.asarray(filled),
-                                      np.asarray(filled_f))
